@@ -1,0 +1,92 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
+first use into ``kernels/build/lib<name>-<hash>.so`` (the directory is
+listed in ``.gitignore``).  The hash covers the source and the flags, so an
+edited source rebuilds and an unchanged one loads at once.  Nothing is
+built or loaded when a module is imported: the CPU tests import every
+module on a host that has no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+
+def sources() -> List[str]:
+    """Names of every CUDA source of the port (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the port's CUDA kernels build on a "
+                       "host with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: List[str] | None = None) -> Dict[str, Tuple[Path, str]]:
+    """Compile every listed source that is not built yet, all ``nvcc``
+    processes started together.  Returns name -> (library, compiler log);
+    the log holds ``-Xptxas -v``'s registers and spills (empty when the
+    library was already built).  Raises with the compiler's output if a
+    build fails."""
+    names = sources() if names is None else names
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    out: Dict[str, Tuple[Path, str]] = {}
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            out[name] = (so, "")
+            continue
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (so, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, so)
+        out[name] = (so, log)
+    if failed:
+        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+    return out
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
+    so, _ = build_all([name])[name]
+    return ctypes.CDLL(str(so))

@@ -1,0 +1,221 @@
+"""Shared model components in plain torch: norms, RoPE, initializers, attention.
+
+Counterpart of ``repro.models.common``.  Parameters keep the reference's
+layout (``x @ W`` with ``W`` shaped ``(d_in, d_out)``), and the numerics
+follow it where they matter for parity: norms, RoPE angles, attention
+scores and ``p @ v`` in float32, cast back to the working dtype after.
+Initialization draws from an explicit ``torch.Generator``; it does not
+reproduce the reference's JAX random bits (use
+``models.model.params_from_jax`` to carry reference weights over).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# dtype / init helpers
+# ---------------------------------------------------------------------------
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def dense_init(shape, generator: torch.Generator, in_axis: int = 0,
+               dtype=torch.float32, scale: float = 1.0,
+               device=None) -> torch.Tensor:
+    """Truncated-normal fan-in init (stddev = scale/sqrt(fan_in))."""
+    std = scale / math.sqrt(shape[in_axis])
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * std).to(dtype)
+
+
+def embed_init(shape, generator: torch.Generator, dtype=torch.float32,
+               device=None) -> torch.Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.normal_(t, 0.0, 1.0, generator=generator)
+    return (t * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def apply_norm(kind: str, p, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """``p`` is a :class:`Norm` module (``scale``, and ``bias`` for layernorm)."""
+    if kind == "rmsnorm":
+        return rmsnorm(x, p.scale, eps)
+    return layernorm(x, p.scale, p.bias, eps)
+
+
+class Norm(torch.nn.Module):
+    """Norm parameters: ``scale`` (rmsnorm; applied as ``1 + scale``, so it
+    starts at zero) or ``scale`` and ``bias`` (layernorm)."""
+
+    def __init__(self, kind: str, d: int, dtype, device=None):
+        super().__init__()
+        if kind == "rmsnorm":
+            self.scale = _param(torch.zeros(d, dtype=dtype, device=device))
+        else:
+            self.scale = _param(torch.ones(d, dtype=dtype, device=device))
+            self.bias = _param(torch.zeros(d, dtype=dtype, device=device))
+
+
+def init_norm(kind: str, d: int, dtype, device=None) -> Norm:
+    return Norm(kind, d, dtype, device)
+
+
+def _param(t: torch.Tensor) -> torch.nn.Parameter:
+    """Inference parameters: the serving plane never takes gradients."""
+    return torch.nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S) int.  Split-half rotation."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)  # (D/2,)
+    ang = positions[..., :, None, None].float() * freqs  # (...,S,1,D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default form
+
+
+def act_fn(name: str):
+    return {
+        "gelu": _gelu_tanh,
+        "silu": F.silu,
+        "swiglu": F.silu,  # gate activation for GLU variants
+        "geglu": _gelu_tanh,
+        "relu": F.relu,
+    }[name]
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Blocked attention (plain torch, online softmax)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, K, G, D)   K = kv heads, G = q heads per kv
+    k: torch.Tensor,  # (B, T, K, D)
+    v: torch.Tensor,  # (B, T, K, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    logit_cap: Optional[float] = None,
+    q_offset: int = 0,
+    block_q: int = 512,
+    block_k: int = 1024,
+) -> torch.Tensor:
+    """Double-blocked online-softmax attention, as the reference computes
+    it: scores and ``p @ v`` in float32, one (block_q, block_k) tile at a
+    time, so (S, T) is never materialized.  Returns (B, S, K, G, D).
+
+    Segment ids, ``kv_len`` and ``p_bf16`` of the reference are not ported
+    yet (the serving plane passes none of them)."""
+    B, S, K, G, D = q.shape
+    T = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    block_q = min(block_q, S)
+    block_k = min(block_k, T)
+    dev = q.device
+    outs = []
+    for q0 in range(0, S, block_q):
+        qb = q[:, q0:q0 + block_q].float()
+        bq = qb.shape[1]
+        q_pos = q_offset + q0 + torch.arange(bq, device=dev)
+        acc = torch.zeros((B, bq, K, G, D), dtype=torch.float32, device=dev)
+        m_run = torch.full((B, bq, K, G), NEG_INF, dtype=torch.float32, device=dev)
+        l_run = torch.zeros((B, bq, K, G), dtype=torch.float32, device=dev)
+        for k0 in range(0, T, block_k):
+            kb = k[:, k0:k0 + block_k].float()
+            vb = v[:, k0:k0 + block_k].float()
+            k_pos = k0 + torch.arange(kb.shape[1], device=dev)
+            s = torch.einsum("bqkgd,btkd->bqkgt", qb, kb) * scale
+            s = softcap(s, logit_cap)
+            ok = torch.ones((bq, kb.shape[1]), dtype=torch.bool, device=dev)
+            if causal:
+                ok = ok & (q_pos[:, None] >= k_pos[None, :])
+            if window is not None:
+                ok = ok & (q_pos[:, None] - k_pos[None, :] < window)
+            mask = torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+            s = s + mask[None, :, None, None, :]
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bqkgt,btkd->bqkgd", p, vb)
+            m_run = m_new
+        outs.append(acc / torch.clamp(l_run[..., None], min=1e-30))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, K, G, D)
+    k_cache: torch.Tensor,  # (B, T, K, D)
+    v_cache: torch.Tensor,  # (B, T, K, D)
+    kv_len: torch.Tensor,  # (B,) valid length
+    *,
+    logit_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token attention against a cache (no blocking needed)."""
+    B, T, K, D = k_cache.shape
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bqkgd,btkd->bqkgt", q.float(), k_cache.float()) * scale
+    s = softcap(s, logit_cap)
+    pos = torch.arange(T, device=q.device)
+    valid = pos[None, :] < kv_len.expand(B)[:, None]
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgt,btkd->bqkgd", p, v_cache.float())
+    return out.to(q.dtype)

@@ -1,0 +1,225 @@
+"""Port parity, DES kernels: ``repro_torch.kernels`` against the JAX package.
+
+On the CPU the wrappers take their plain versions, which are held here to
+the JAX oracles (``repro.kernels.ref``, ``core.vectorized.decode_batch``)
+and, for the aligned run, to the Pallas ``unpack_run`` in interpret mode.
+Rows are compared where they lie inside the wire: past it the reference
+oracle clips to the last byte while the kernels (and the padded Pallas
+wire) read zeros.  The CUDA kernels themselves are held to their plain
+versions on the card by ``tests/test_torch_cuda.py``.
+"""
+from unittest import mock
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+import jax.numpy as jnp
+import torch
+
+from repro.core import batch_plans as j_batch_plans
+from repro.core import decode_batch as j_decode_batch
+from repro.core import decode_message as j_decode_message
+from repro.core import ser_sw_to_hw as j_ser
+from repro.core import stack_wires as j_stack_wires
+from repro.core import wire_to_u8 as j_wire_to_u8
+from repro.core.idl import Schema as JSchema
+from repro.data.schemas import request_schema as j_request_schema
+from repro.kernels import phit_unpack as j_phit
+from repro.kernels import ref as j_ref
+from repro.core import plan_from_wire as j_plan_from_wire
+from repro_torch.core import Schema, batch_plans, decode_batch, lanes_u32, plan_from_wire
+from repro_torch.core import stack_wires
+from repro_torch.data.schemas import request_schema
+from repro_torch.kernels import ops, phit_unpack as pu
+
+NBYTES = [1, 3, 4, 5, 8, 13, 16]
+WIRE_BYTES = 4 * 1600
+COUNT = 300  # rows per run: not a multiple of the reference's 256-row block
+
+
+@pytest.fixture
+def wire_np():
+    return np.random.default_rng(11).integers(0, 2**32, WIRE_BYTES // 4, dtype=np.uint32)
+
+
+def _t(wire_np):
+    return torch.from_numpy(wire_np.view(np.int32).copy())
+
+
+# (base, stride) per nbytes: aligned, unaligned base, unaligned stride
+def _layouts(nbytes):
+    w4 = 4 * ((nbytes + 3) // 4)
+    return {"aligned": (8, w4), "base1": (1, w4), "stride": (4, nbytes + 1 + (nbytes % 4 == 3))}
+
+
+@pytest.mark.parametrize("nbytes", NBYTES)
+@pytest.mark.parametrize("layout", ["aligned", "base1", "stride"])
+def test_plain_run_matches_ref(wire_np, nbytes, layout):
+    base, stride = _layouts(nbytes)[layout]
+    count = COUNT
+    assert base + (count - 1) * stride + nbytes <= WIRE_BYTES  # rows inside the wire
+    want = np.asarray(j_ref.unpack_run_ref(jnp.asarray(wire_np), base, stride, count, nbytes))
+    got = pu.unpack_run(_t(wire_np), base, stride, count, nbytes)
+    np.testing.assert_array_equal(lanes_u32(got), want)
+    # the general body agrees with the aligned one wherever both apply
+    np.testing.assert_array_equal(
+        lanes_u32(pu.unpack_run_general(_t(wire_np), base, stride, count, nbytes)), want)
+    if layout == "aligned":
+        np.testing.assert_array_equal(
+            lanes_u32(pu.unpack_run_aligned(_t(wire_np), base, stride, count, nbytes)), want)
+
+
+@pytest.mark.parametrize("nbytes", NBYTES)
+def test_plain_gather_matches_ref(wire_np, nbytes):
+    rng = np.random.default_rng(nbytes)
+    offs = rng.integers(0, WIRE_BYTES - nbytes + 1, COUNT)  # every phase 0..3
+    want = np.asarray(j_ref.unpack_gather_ref(jnp.asarray(wire_np),
+                                              jnp.asarray(offs, jnp.int32), nbytes))
+    got = pu.unpack_gather(_t(wire_np), torch.from_numpy(offs), nbytes)
+    np.testing.assert_array_equal(lanes_u32(got), want)
+
+
+@pytest.mark.parametrize("nbytes", [1, 4, 5, 13, 16])
+def test_plain_aligned_matches_pallas_interpret(wire_np, nbytes):
+    """The Pallas aligned body still runs on this JAX (interpret mode)."""
+    base, stride = _layouts(nbytes)["aligned"]
+    count = COUNT
+    want = np.asarray(j_phit.unpack_run(jnp.asarray(wire_np), base, stride, count, nbytes,
+                                        interpret=True))
+    got = pu.unpack_run_aligned(_t(wire_np), base, stride, count, nbytes)
+    np.testing.assert_array_equal(lanes_u32(got), want)
+
+
+def test_plain_reads_zeros_past_the_wire(wire_np):
+    """Past the wire the port reads zeros, as the padded Pallas wire does."""
+    w = _t(wire_np[:3])  # 12 bytes
+    got = lanes_u32(pu.unpack_run_general(w, 9, 5, 3, 5))
+    b = wire_np[:3].view(np.uint8).tobytes() + bytes(32)
+    want = [np.frombuffer(b[o:o + 5] + bytes(3), np.uint32) for o in (9, 14, 19)]
+    np.testing.assert_array_equal(got, np.stack(want))
+
+
+def _random_request_wires(rng, n=6):
+    """Ragged batch: includes a zero-prompt request and an empty token list."""
+    n_prompts = [0, 1, 3, 5, 2, 4]
+    wires = []
+    for m in range(n):
+        msg = {"req_id": 100 + m, "prompts": [
+            {"tokens": list(map(int, rng.integers(0, 2**31, rng.integers(0, 9))))}
+            for _ in range(n_prompts[m % len(n_prompts)])
+        ]}
+        wires.append(j_ser(j_request_schema(), msg))
+    return wires
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_decode_batch_kernel_matches_jax_decode_batch(seed):
+    rng = np.random.default_rng(seed)
+    wires = _random_request_wires(rng)
+    bp = j_batch_plans(j_request_schema(), wires)
+    oracle = j_decode_batch(jnp.asarray(j_stack_wires(wires)), bp)
+    u32, row_bytes = ops.wires_to_u32(wires, "cpu")
+    got = ops.decode_batch_kernel(u32, row_bytes, bp)
+    for p in oracle:
+        for i in range(len(wires)):
+            n = int(bp.counts[p][i])
+            np.testing.assert_array_equal(lanes_u32(got[p][i, :n]),
+                                          np.asarray(oracle[p][i, :n]), err_msg=p)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_decode_batch_kernel_matches_torch_decode_batch(seed):
+    """The port's own torch gather ``decode_batch`` is the oracle of its
+    kernel twin, on every row that lies inside its wire."""
+    wires = _random_request_wires(np.random.default_rng(seed))
+    bp = batch_plans(request_schema(), wires)
+    want = decode_batch(torch.from_numpy(stack_wires(wires)), bp)
+    got = ops.decode_batch_kernel(*ops.wires_to_u32(wires, "cpu"), bp)
+    assert got.keys() == want.keys()
+    for p in want:
+        for i in range(len(wires)):
+            n = int(bp.counts[p][i])
+            assert torch.equal(got[p][i, :n], want[p][i, :n]), p
+
+
+RECORD_SCHEMA = {"Recs": [["hdr", ["Bytes", 3]], ["recs", ["Array", ["Bytes", 13]]]]}
+
+
+def test_decode_message_kernel_unaligned_run_matches_jax():
+    """An unaligned uniform run (13-byte records after a 3-byte header)
+    takes the general run kernel; the result equals the jnp decode."""
+    rng = np.random.default_rng(2)
+    msg = {"hdr": 0xABCDEF, "recs": [int(v) for v in rng.integers(0, 2**62, 40)]}
+    js = JSchema.from_json(RECORD_SCHEMA)
+    wire = j_ser(js, msg)
+    plan = plan_from_wire(Schema.from_json(RECORD_SCHEMA), wire)
+    assert ops.runs_from_plan(plan, "recs.elem") == (7, 13)
+    want = j_decode_message(j_wire_to_u8(wire), j_plan_from_wire(js, wire))
+    got = ops.decode_message_kernel(ops.wire_to_u32(wire, "cpu"), plan)
+    for p in want:
+        n = plan.counts[p]
+        np.testing.assert_array_equal(lanes_u32(got[p][:n]), np.asarray(want[p][:n]))
+
+
+def test_wires_to_u32_rows():
+    wires = [b"\x01\x02\x03", b"\x04\x05\x06\x07\x08"]
+    lanes, row_bytes = ops.wires_to_u32(wires, "cpu")
+    assert row_bytes == 8 and lanes.dtype == torch.int32
+    assert lanes_u32(lanes).view(np.uint8).tobytes() == (
+        b"\x01\x02\x03" + bytes(5) + b"\x04\x05\x06\x07\x08" + bytes(3))
+
+
+# ---------------------------------------------------------------------------
+# no hidden fallback
+# ---------------------------------------------------------------------------
+
+
+def test_recording_collects_launches(monkeypatch):
+    """Inside ``recording`` every launch is kept as (kernel, wire, args),
+    and counted once; outside it launches are counted only."""
+    lib = mock.MagicMock()
+    lib.hgum_unpack_gather.return_value = 0
+    monkeypatch.setattr(pu, "_library", lambda: lib)
+    monkeypatch.setattr(pu, "LAUNCHES", dict.fromkeys(pu.LAUNCHES, 0))
+    with pu.recording() as calls:
+        pu._launch("unpack_gather", ("wire", ("offsets", 4)), "hgum_unpack_gather", 1, 2)
+    pu._launch("unpack_gather", ("wire2", ("offsets2", 4)), "hgum_unpack_gather", 3, 4)
+    assert calls == [("unpack_gather", "wire", ("offsets", 4))]
+    assert pu.LAUNCHES["unpack_gather"] == 2 and pu._RECORDED is None
+    lib.hgum_unpack_gather.assert_any_call(1, 2)
+
+
+def _forbid_plain(monkeypatch):
+    calls = []
+    for name in ("unpack_run_aligned_plain", "unpack_run_general_plain", "unpack_gather_plain"):
+        monkeypatch.setattr(pu, name, lambda *a, _n=name, **k: calls.append(_n))
+    return calls
+
+
+@pytest.mark.parametrize("kernel", ["aligned", "general", "gather"])
+def test_non_cpu_tensor_never_takes_plain(monkeypatch, kernel):
+    """A CUDA tensor launches the kernel or raises: the wrapper must not
+    route it to the plain version.  Here a mocked CUDA tensor reaches the
+    launch (which cannot allocate on a host without a card) and a meta
+    tensor is refused."""
+    calls = _forbid_plain(monkeypatch)
+    launched = []
+    monkeypatch.setattr(pu, "_launch", lambda kernel, *a: launched.append(kernel))
+    fake = mock.MagicMock(spec=torch.Tensor)
+    fake.dtype, fake.device, fake.shape = torch.int32, torch.device("cuda", 0), (64,)
+    fake.dim.return_value, fake.is_contiguous.return_value = 1, True
+    offs = mock.MagicMock(spec=torch.Tensor)
+    offs.dtype, offs.device, offs.shape = torch.int64, torch.device("cuda", 0), (4,)
+    offs.dim.return_value, offs.is_contiguous.return_value = 1, True
+    meta = torch.empty(64, dtype=torch.int32, device="meta")
+    call = {
+        "aligned": lambda w: pu.unpack_run_aligned(w, 0, 8, 4, 8),
+        "general": lambda w: pu.unpack_run_general(w, 1, 13, 4, 13),
+        "gather": lambda w: pu.unpack_gather(w, offs if w is fake else meta.long()[:4], 4),
+    }[kernel]
+    with pytest.raises((RuntimeError, AssertionError)):  # no CUDA in this torch
+        call(fake)
+    with pytest.raises(ValueError, match="unsupported device"):
+        call(meta)
+    assert calls == [] and launched == []
