@@ -23,6 +23,19 @@ What it does, in order (any failed check raises and the exit code is 1):
 4. Records: ``kernels.ops.decode_message_kernel`` on one wire of 2**20
    13-byte records (an unaligned uniform run): the general run kernel must
    launch, and the lanes must equal the record bytes.
+5. Fabric: the same seeded sends (ARQ on, under a seeded FaultPlan)
+   through both tick engines on the card and through the host fabric must
+   deliver the same bytes, arrival steps and counters.
+6. Sharded: ``serve_requests_sharded`` on the same yi-6b parameters and
+   the same 16 wires, 3 shards, ARQ on, once with the default placement
+   and once round-robin over the shards: every response must equal the
+   batched plane's from phase 3, and the frame kernels' launch counters
+   must rise.  Prints req/s, tok/s, fabric ticks, router scan steps per
+   tick and host ms per tick.
+7. Frame kernels: ``pack_frames_batch`` and ``unpack_frames_batch``
+   against their plain versions, bit for bit, at the calls phase 6 made
+   (recorded by the wrappers) and at one large shape (2**20 frames of 68
+   words, 272 MiB), with their times, bounds and plain and library times.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -44,7 +57,9 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.core import Schema, lanes_u32, plan_from_wire, ser_sw_to_hw  # noqa: E402
+from repro_torch.fabric import Fabric, FabricConfig, FaultPlan  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import frame_pack as fp  # noqa: E402
 from repro_torch.kernels import phit_unpack as pu  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.steps import cached_serve_steps  # noqa: E402
@@ -53,15 +68,21 @@ from repro_torch.models import prefill as model_prefill  # noqa: E402
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
-SOURCE = "src/repro_torch/kernels/csrc/phit_unpack.cu"
+PHIT_SOURCE = "src/repro_torch/kernels/csrc/phit_unpack.cu"
+FRAME_SOURCE = "src/repro_torch/kernels/csrc/frame_pack.cu"
 KERNELS = {
-    # name: (replaces, plain version, wrapper)
-    "unpack_run_aligned": ("src/repro/kernels/phit_unpack.py:48",
-                           pu.unpack_run_aligned_plain, pu.unpack_run_aligned),
-    "unpack_run_general": ("src/repro/kernels/phit_unpack.py:57",
-                           pu.unpack_run_general_plain, pu.unpack_run_general),
-    "unpack_gather": ("src/repro/kernels/phit_unpack.py:143",
-                      pu.unpack_gather_plain, pu.unpack_gather),
+    # name: (source, replaces, plain version, wrapper, launch counters)
+    "unpack_run_aligned": (PHIT_SOURCE, "src/repro/kernels/phit_unpack.py:48",
+                           pu.unpack_run_aligned_plain, pu.unpack_run_aligned, pu.LAUNCHES),
+    "unpack_run_general": (PHIT_SOURCE, "src/repro/kernels/phit_unpack.py:57",
+                           pu.unpack_run_general_plain, pu.unpack_run_general, pu.LAUNCHES),
+    "unpack_gather": (PHIT_SOURCE, "src/repro/kernels/phit_unpack.py:143",
+                      pu.unpack_gather_plain, pu.unpack_gather, pu.LAUNCHES),
+    "pack_frames_batch": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:82",
+                          fp.pack_frames_batch_plain, fp.pack_frames_batch, fp.LAUNCHES),
+    "unpack_frames_batch": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:168",
+                            fp.unpack_frames_batch_plain, fp.unpack_frames_batch,
+                            fp.LAUNCHES),
 }
 
 # serve load (phase 3)
@@ -70,6 +91,9 @@ PAD_TO, MAX_NEW, SLOTS, SEED = 256, 32, 16, 0
 # record path (phase 4): hdr Bytes 3 + Array<Bytes 13>
 RECORD_SCHEMA = {"Recs": [["hdr", ["Bytes", 3]], ["recs", ["Array", ["Bytes", 13]]]]}
 N_RECORDS = 1 << 20
+# sharded plane (phase 6) and the frame kernels' large shape (phase 7)
+N_SHARDS = 3
+N_FRAMES_LARGE, FRAME_WORDS = 1 << 20, 64
 
 
 def log(msg: str) -> None:
@@ -100,9 +124,14 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def call_bytes(kernel: str, wire: torch.Tensor, args: tuple) -> int:
-    """Bytes one call must move: the wire bytes its rows cover (read once,
-    at most the whole wire), the offsets for the gather, the lanes written."""
+def call_bytes(kernel: str, wire: torch.Tensor, *args) -> int:
+    """Bytes one call must move.  Unpack kernels: the wire bytes their rows
+    cover (read once, at most the whole wire), the offsets for the gather,
+    the lanes written.  Frame kernels: every input word read once and
+    every output word written once, i.e. twice the inputs' bytes."""
+    if kernel in ("pack_frames_batch", "unpack_frames_batch"):
+        return 2 * 4 * sum(t.numel() for t in (wire,) + args)
+    args = tuple(args)
     if kernel == "unpack_gather":
         offsets, nbytes = args
         rows = offsets.shape[0]
@@ -115,30 +144,39 @@ def call_bytes(kernel: str, wire: torch.Tensor, args: tuple) -> int:
     return read + extra + 4 * rows * nlanes
 
 
-def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Largest |a - b| over u32 lanes (0 when the two agree bit for bit)."""
+def max_abs_err(a, b) -> int:
+    """Largest |a - b| over u32 lanes (0 when the two agree bit for bit);
+    a tuple of outputs counts its worst part."""
+    if isinstance(a, tuple):
+        return max(max_abs_err(x, y) for x, y in zip(a, b))
     if a.numel() == 0:
         return 0
     d = (a.long() & 0xFFFFFFFF) - (b.long() & 0xFFFFFFFF)
     return int(d.abs().max())
 
 
+def same(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
 def measure(kernel: str, calls, reps: int) -> dict:
-    """Hold a kernel to its plain version on ``calls`` (list of (wire,
-    args)) and time both: one 'run' is every call in the list."""
-    _, plain, wrapper = KERNELS[kernel]
+    """Hold a kernel to its plain version on ``calls`` (list of argument
+    tuples) and time both: one 'run' is every call in the list."""
+    _, _, plain, wrapper, launches = KERNELS[kernel]
     err = 0
-    for wire, args in calls:
-        before = pu.LAUNCHES[kernel]
-        got = wrapper(wire, *args)
+    for args in calls:
+        before = launches[kernel]
+        got = wrapper(*args)
         torch.cuda.synchronize()
-        check(pu.LAUNCHES[kernel] == before + 1, f"{kernel} did not launch")
-        want = plain(wire, *args)
+        check(launches[kernel] == before + 1, f"{kernel} did not launch")
+        want = plain(*args)
         err = max(err, max_abs_err(got, want))
-        check(torch.equal(got, want), f"{kernel} differs from its plain version")
-    ms = time_ms(lambda: [wrapper(w, *a) for w, a in calls], reps)
-    plain_ms = time_ms(lambda: [plain(w, *a) for w, a in calls], max(1, reps // 10))
-    nbytes = sum(call_bytes(kernel, w, a) for w, a in calls)
+        check(same(got, want), f"{kernel} differs from its plain version")
+    ms = time_ms(lambda: [wrapper(*a) for a in calls], reps)
+    plain_ms = time_ms(lambda: [plain(*a) for a in calls], max(1, reps // 10))
+    nbytes = sum(call_bytes(kernel, *a) for a in calls)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
 
@@ -175,9 +213,9 @@ def main_path_calls(dev, wires, rec_plan, rec_lanes):
         serve.decode_request_batch(wires, dev)
         ops.decode_message_kernel(rec_lanes, rec_plan)
     torch.cuda.synchronize()
-    calls = {name: [] for name in KERNELS}
+    calls = {name: [] for name in pu.LAUNCHES}
     for name, wire, args in made:
-        calls[name].append((wire, args))
+        calls[name].append((wire,) + args)
     for name, c in calls.items():
         check(len(c) >= 1, f"{name}: no call on the main paths")
     return calls
@@ -205,38 +243,102 @@ def record_path(dev, rec_wire):
     return plan, ops.wire_to_u32(rec_wire, dev)
 
 
+def log_rows(name: str, rows: dict, large_label: str, library: str) -> None:
+    for label, r in (("main-path shapes", rows["main"]), (large_label, rows["large"])):
+        log(f"[kernels] {name:20s} {label:22s} kernel {r['ms']:.4f} ms  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bytes']} B)  plain {r['plain_ms']:.4f} ms"
+            + (f"  {library} {r['library_ms']:.4f} ms" if r["library_ms"] else "")
+            + f"  max_abs_err {r['max_abs_err']}")
+
+
 def phase_kernels(dev, main):
-    """Phase 2: each kernel == plain at the main paths' calls and large."""
+    """Phase 2: each DES kernel == plain at the main paths' calls and large."""
     rows = {}
     g = torch.Generator(device=dev).manual_seed(7)
     big = torch.randint(-2**31, 2**31, (1 << 26,), dtype=torch.int32, device=dev, generator=g)
     n_big = 4 * big.shape[0]
     large = {
-        "unpack_run_aligned": [(big, (0, 4, 1 << 26, 4))],
-        "unpack_run_general": [(big, (1, 13, (n_big - 1 - 13) // 13 + 1, 13))],
-        "unpack_gather": [(big, (torch.sort(torch.randint(
-            0, n_big - 4, (1 << 24,), device=dev, generator=g)).values, 4))],
+        "unpack_run_aligned": [(big, 0, 4, 1 << 26, 4)],
+        "unpack_run_general": [(big, 1, 13, (n_big - 1 - 13) // 13 + 1, 13)],
+        "unpack_gather": [(big, torch.sort(torch.randint(
+            0, n_big - 4, (1 << 24,), device=dev, generator=g)).values, 4)],
     }
-    for name in KERNELS:
+    for name in pu.LAUNCHES:
         m = measure(name, main[name], reps=200)
         lg = measure(name, large[name], reps=20)
         m["library_ms"] = lg["library_ms"] = None
         if name == "unpack_run_aligned":
-            m["library_ms"] = sum(strided_and_ms(w, a, 200) for w, a in main[name])
-            lg["library_ms"] = strided_and_ms(*large[name][0], 20)
+            m["library_ms"] = sum(strided_and_ms(a[0], a[1:], 200) for a in main[name])
+            lg["library_ms"] = strided_and_ms(big, large[name][0][1:], 20)
         rows[name] = {"main": m, "large": lg}
-        for label, r in (("main-path shapes", m), ("large (256 MiB wire)", lg)):
-            log(f"[kernels] {name:20s} {label:22s} kernel {r['ms']:.4f} ms  "
-                f"bound {r['bound_ms']:.4f} ms ({r['bytes']} B)  plain {r['plain_ms']:.4f} ms"
-                + (f"  strided view & mask {r['library_ms']:.4f} ms" if r["library_ms"] else "")
-                + f"  max_abs_err {r['max_abs_err']}")
+        log_rows(name, rows[name], "large (256 MiB wire)", "strided view & mask")
     del big, large
     torch.cuda.empty_cache()
     return rows
 
 
+def library_frame_ms(name: str, calls, reps: int) -> float:
+    """The PyTorch calls that compute the same function: ``torch.cat`` of
+    headers and payloads (pack), or the two slices made contiguous
+    (unpack), checked equal to the kernel first."""
+    if name == "pack_frames_batch":
+        fn = lambda: [torch.cat([h, p], -1) for h, p in calls]  # noqa: E731
+    else:
+        fn = lambda: [(f[:, :4].contiguous(), f[:, 4:].contiguous())  # noqa: E731
+                      for (f,) in calls]
+    check(all(same(tuple(x) if isinstance(x, tuple) else x, KERNELS[name][3](*a))
+              for x, a in zip(fn(), calls)), f"{name}: library call differs")
+    return time_ms(fn, reps)
+
+
+def phase_frame_kernels(dev, recorded):
+    """Phase 7: each frame kernel == plain at the calls the sharded serve
+    made (recorded) and at 2**20 frames of 4 + 64 words."""
+    calls = {name: [] for name in fp.LAUNCHES}
+    for name, args in recorded:
+        calls[name].append(args)
+    g = torch.Generator(device=dev).manual_seed(11)
+    n, f = N_FRAMES_LARGE, 16
+    large = {
+        "pack_frames_batch": [(
+            torch.randint(-2**31, 2**31, (n // f, f, 4), dtype=torch.int32, device=dev,
+                          generator=g),
+            torch.randint(-2**31, 2**31, (n // f, f, FRAME_WORDS), dtype=torch.int32,
+                          device=dev, generator=g))],
+        "unpack_frames_batch": [(torch.randint(
+            -2**31, 2**31, (n, 4 + FRAME_WORDS), dtype=torch.int32, device=dev,
+            generator=g),)],
+    }
+    rows = {}
+    for name in fp.LAUNCHES:
+        check(len(calls[name]) >= 1, f"{name}: no call recorded on the sharded path")
+        m = measure(name, calls[name], reps=200)
+        lg = measure(name, large[name], reps=20)
+        m["library_ms"] = library_frame_ms(name, calls[name], 200)
+        lg["library_ms"] = library_frame_ms(name, large[name], 20)
+        m["calls"] = len(calls[name])
+        rows[name] = {"main": m, "large": lg}
+        shapes = sorted({tuple(tuple(t.shape) for t in a) for a in calls[name]})
+        log(f"[kernels] {name}: {len(calls[name])} recorded calls, shapes {shapes}")
+        log_rows(name, rows[name], "large (2**20 frames)",
+                 "torch.cat" if name == "pack_frames_batch" else "slices .contiguous()")
+    del large
+    torch.cuda.empty_cache()
+    return rows
+
+
+def reset_launches() -> None:
+    pu.reset_launches()
+    fp.reset_launches()
+
+
+def read_launches() -> dict:
+    return {name: k[4][name] for name, k in KERNELS.items()}
+
+
 def phase_serve(dev, wires):
-    """Phase 3: the serving plane at full width; returns per-path launches."""
+    """Phase 3: the serving plane at full width; returns the path's
+    launches, the yi-6b parameters, its config and the responses."""
     # DES: kernel on the card == plain on the host == host DesFSM
     des_card = serve.decode_request_batch(wires, dev)
     check(des_card == serve.decode_request_batch(wires, "cpu"), "kernel DES != plain DES")
@@ -271,23 +373,16 @@ def phase_serve(dev, wires):
                          device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pu.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     resp = serve.serve_requests(params, cfg, wires, max_new=MAX_NEW, pad_to=PAD_TO,
                                 slots=SLOTS, device=dev)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(pu.LAUNCHES)
+    launches = read_launches()
     check(launches["unpack_run_aligned"] >= 1, "serve run launched no unpack_run_aligned")
     check(launches["unpack_gather"] >= 1, "serve run launched no unpack_gather")
-    n_out = 0
-    for m, (w, rw) in enumerate(zip(wires, resp)):
-        rid, outs = serve.decode_response(rw)
-        check(rid == m and len(outs) == N_PROMPTS, f"response {m}: bad header")
-        for o in outs:
-            check(len(o) == MAX_NEW and all(0 <= t < cfg.vocab for t in o),
-                  f"response {m}: bad tokens")
-            n_out += len(o)
+    n_out = check_responses(cfg, resp)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[serve] serve_requests: {len(wires)} requests, {n_out} tokens generated in "
         f"{dt:.3f} s: {len(wires) / dt:.3f} req/s, {n_out / dt:.1f} tok/s; peak "
@@ -312,18 +407,32 @@ def phase_serve(dev, wires):
           "full-width prefill logits not finite / wrong shape")
     log(f"[serve] prefill step ({SLOTS}x{PAD_TO} tokens): {pf_ms:.3f} ms; decode step "
         f"({SLOTS} slots, cache {PAD_TO + MAX_NEW}): {dec_ms:.3f} ms")
-    del params, cache, state
+    del cache, state
     torch.cuda.empty_cache()
-    return launches
+    return launches, params, cfg, resp
+
+
+def check_responses(cfg, resp) -> int:
+    """Every response parses back with its request id, N_PROMPTS outputs of
+    MAX_NEW in-vocabulary tokens; returns the tokens generated."""
+    n_out = 0
+    for m, rw in enumerate(resp):
+        rid, outs = serve.decode_response(rw)
+        check(rid == m and len(outs) == N_PROMPTS, f"response {m}: bad header")
+        for o in outs:
+            check(len(o) == MAX_NEW and all(0 <= t < cfg.vocab for t in o),
+                  f"response {m}: bad tokens")
+            n_out += len(o)
+    return n_out
 
 
 def phase_records(plan, lanes, rec_wire, recs):
     """Phase 4: one large fixed-width record message through
     decode_message_kernel; returns its launches."""
-    pu.reset_launches()
+    reset_launches()
     out = ops.decode_message_kernel(lanes, plan)
     torch.cuda.synchronize()
-    launches = dict(pu.LAUNCHES)
+    launches = read_launches()
     check(launches["unpack_run_general"] >= 1, "record path launched no unpack_run_general")
     want = np.zeros((len(recs), 16), np.uint8)
     want[:, :13] = recs
@@ -333,6 +442,106 @@ def phase_records(plan, lanes, rec_wire, recs):
     log(f"[records] decode_message_kernel: {len(recs)} records of 13 bytes "
         f"({len(rec_wire)} B wire) decoded; launches {launches}")
     return launches
+
+
+def fabric_run(fab, sends, idle: int):
+    """Send, then tick ``idle`` + 1 times; every delivery as a tuple."""
+    for s, d, w, lvl in sends:
+        fab.send(s, d, w, lvl)
+    got = []
+    for _ in range(idle + 1):
+        fab.exchange()
+        for r in range(fab.n_ranks):
+            got += [(r, x.src, x.wire, x.ok, x.list_level, x.arrive_step, x.attribution,
+                     x.seq0) for x in fab.mailbox(r).recv()]
+    return got, fab.counters_total()
+
+
+def phase_fabric(dev):
+    """Phase 5: seeded sends, ARQ under a seeded FaultPlan, through both
+    tick engines on the card and the fused engine on the host."""
+    rng = np.random.default_rng(SEED)
+    sends = [(int(rng.integers(8)), int(rng.integers(8)),
+              rng.integers(0, 256, int(rng.integers(1, 4000)), dtype=np.uint8).tobytes(),
+              int(rng.integers(1, 4))) for _ in range(48)]
+    plan = dict(seed=5, drop=0.03, corrupt=0.03, duplicate=0.03)
+    out = {}
+    reset_launches()
+    for label, fused, where in (("fused", True, dev), ("programs", False, dev),
+                                ("host fused", True, "cpu")):
+        fab = Fabric(n_ranks=8, config=FabricConfig(arq=True, fused=fused), device=where)
+        fab.faults = FaultPlan(**plan)
+        t0 = time.perf_counter()
+        out[label] = fabric_run(fab, sends, idle=40)
+        dt = time.perf_counter() - t0
+        log(f"[fabric] {label:10s} on {where}: {len(out[label][0])} messages, {fab.ticks} "
+            f"ticks, {fab.router.scan_steps} scan steps, {dt * 1e3 / fab.ticks:.3f} ms/tick")
+        if where == dev and fused:
+            launches = read_launches()
+    check(len(out["fused"][0]) == len(sends) and all(d[3] for d in out["fused"][0]),
+          "fabric: ARQ did not deliver every message intact")
+    for label in ("programs", "host fused"):
+        check(out[label][0] == out["fused"][0], f"fabric: {label} deliveries differ")
+        check(np.array_equal(out[label][1], out["fused"][1]), f"fabric: {label} counters differ")
+    log("[fabric] fused == three-program on the card == fused on the host: deliveries, "
+        "arrival steps, attribution and counters")
+    return launches
+
+
+def sharded_run(dev, params, cfg, wires, base, placement, label: str):
+    """One sharded serve on a fresh default serve fabric, every response
+    held to the batched plane's; returns its launches and the frame
+    kernels' recorded calls."""
+    fab = serve.default_serve_fabric(N_SHARDS, device=dev)
+    tick_s = []
+    exchange = fab.exchange
+
+    def timed_exchange():
+        t = time.perf_counter()
+        exchange()  # ends in the host readback of the tick
+        tick_s.append(time.perf_counter() - t)
+
+    fab.exchange = timed_exchange
+    placed = placement or serve.place_requests(
+        fab.router, len(wires), list(range(1, fab.n_ranks)), capacity=SLOTS)
+    log(f"[sharded] {label}: requests per shard "
+        f"{ {s: placed.count(s) for s in range(1, fab.n_ranks)} }")
+    reset_launches()
+    t0 = time.perf_counter()
+    with fp.recording() as made:
+        resp = serve.serve_requests_sharded(params, cfg, wires, max_new=MAX_NEW,
+                                            pad_to=PAD_TO, slots=SLOTS, fabric=fab,
+                                            placement=placement, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    for name in fp.LAUNCHES:
+        check(launches[name] >= 1, f"sharded serve launched no {name}")
+    n_out = check_responses(cfg, resp)
+    for m, (a, b) in enumerate(zip(resp, base)):
+        check(a == b, f"sharded response {m} differs from the batched plane's")
+    ticks = len(tick_s)
+    log(f"[sharded] serve_requests_sharded: {len(wires)} requests over {N_SHARDS} shards, "
+        f"{n_out} tokens in {dt:.3f} s: {len(wires) / dt:.3f} req/s, {n_out / dt:.1f} tok/s; "
+        f"every response == the batched plane's; launches {launches}")
+    log(f"[sharded] fabric: {ticks} ticks ({fab.exchanges} dispatched), "
+        f"{fab.router.scan_steps} router scan steps ({fab.router.scan_steps / ticks:.2f} "
+        f"per tick), {fab.frames_routed} frames; host ms per tick mean "
+        f"{1e3 * sum(tick_s) / ticks:.3f} max {1e3 * max(tick_s):.3f}, fabric total "
+        f"{1e3 * sum(tick_s):.3f} ms of {1e3 * dt:.3f} ms")
+    return launches, made
+
+
+def phase_sharded(dev, params, cfg, wires, base):
+    """Phase 6: the sharded plane on the full-width model, twice: with the
+    default placement (nearest shard with free capacity, which puts all 16
+    requests on shard 1) and round-robin over the 3 shards, so that every
+    shard decodes its own mix of sequences.  Returns each run's launches
+    and the frame kernels' recorded calls of both."""
+    runs = [sharded_run(dev, params, cfg, wires, base, None, "default placement"),
+            sharded_run(dev, params, cfg, wires, base,
+                        [1 + i % N_SHARDS for i in range(len(wires))], "round-robin")]
+    return [r[0] for r in runs], [c for r in runs for c in r[1]]
 
 
 def main() -> int:
@@ -360,16 +569,22 @@ def main() -> int:
     rec_wire, recs = record_wire(N_RECORDS)
     rec_plan, rec_lanes = record_path(dev, rec_wire)
     rows = phase_kernels(dev, main_path_calls(dev, wires, rec_plan, rec_lanes))
-    path_launches = [phase_serve(dev, wires),
-                     phase_records(rec_plan, rec_lanes, rec_wire, recs)]
+    serve_launches, params, cfg, base = phase_serve(dev, wires)
+    path_launches = [serve_launches, phase_records(rec_plan, rec_lanes, rec_wire, recs),
+                     phase_fabric(dev)]
+    sharded_launches, recorded = phase_sharded(dev, params, cfg, wires, base)
+    path_launches += sharded_launches
+    del params
+    torch.cuda.empty_cache()
+    rows.update(phase_frame_kernels(dev, recorded))
 
     records = []
-    for name, (replaces, _, _) in KERNELS.items():
+    for name, (source, replaces, _, _, _) in KERNELS.items():
         n = sum(p[name] for p in path_launches)
         check(n >= 1, f"{name} was not launched on any main path")
         m = rows[name]["main"]
         records.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n, "max_abs_err": max(m["max_abs_err"],
                                               rows[name]["large"]["max_abs_err"]),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],

@@ -5,9 +5,13 @@ The structure pass (``DecodePlan``, ``build_plan``, ``plan_from_wire``,
 copy of ``repro.core.vectorized``: the host walks the schema once and
 records the byte offset of every instance of every leaf.  The payload pass
 (``decode_leaf``, ``decode_batch``, ``decode_message``) is written in torch:
-one gather per leaf path moves every payload byte at once.  It is the plain
-oracle of the CUDA kernels in ``repro_torch.kernels.phit_unpack``, as the
-jnp functions are the oracle of the Pallas kernels in the reference.
+one gather per leaf path moves every payload byte at once.  It is the
+counterpart of the reference's jnp payload pass and equals it bit for bit.
+It is not what the CUDA kernels of ``repro_torch.kernels.phit_unpack`` are
+held to: each kernel is held to its own plain version in that module.  The
+two differ past the end of a wire (this gather clips to the last byte, the
+kernels and their plain versions read zeros), so they agree only on rows
+that lie inside the wire.
 
 Lane carrier: token lanes are little-endian u32 words.  torch's ``uint32``
 has no shifts or comparisons on the CPU, so the port carries every u32 lane
@@ -410,7 +414,7 @@ def lanes_u32(lanes) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Payload pass (vectorized gather) — torch oracle for kernels.ops
+# Payload pass (vectorized gather) — counterpart of the jnp payload pass
 # ---------------------------------------------------------------------------
 
 
@@ -449,10 +453,10 @@ def decode_batch(
 ) -> Dict[str, torch.Tensor]:
     """Batched payload pass: ONE gather per leaf path moves every instance of
     every message.  Returns path -> int32 lanes [N, cap, nlanes] (rows past
-    ``bplan.counts[path][m]`` are padding).  Torch oracle for
-    ``repro_torch.kernels.ops.decode_batch_kernel``, which must equal it on
-    every row that lies inside its wire (past the wire this gather clips
-    to the last byte, the kernels read zeros)."""
+    ``bplan.counts[path][m]`` are padding).  The counterpart of the
+    reference's jnp ``decode_batch``; ``kernels.ops.decode_batch_kernel``
+    equals it on every row that lies inside its wire (past the wire this
+    gather clips to the last byte, the kernels read zeros)."""
     N, L = wires_u8.shape
     flat = wires_u8.reshape(-1)
     base = (np.arange(N, dtype=np.int64) * L)[:, None]

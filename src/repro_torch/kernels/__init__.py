@@ -1,20 +1,25 @@
 """Hand-written CUDA kernels of the port and their public wrappers.
 
 ``phit_unpack`` holds the DES payload kernels (CUDA C++ for ``sm_90a`` in
-``csrc/phit_unpack.cu``, each beside its plain PyTorch version); ``ops``
-holds the plan-driven wrappers (``decode_batch_kernel``, ...).  Importing
+``csrc/phit_unpack.cu``) and ``frame_pack`` the routed fabric's frame
+assembly and RX split (``csrc/frame_pack.cu``), each kernel beside its
+plain PyTorch version; ``ops`` holds the public wrappers
+(``decode_batch_kernel``, ``encode_frames_batch``, ...).  Importing
 this package builds nothing: a kernel is built on its first launch.
 """
 from .ops import (
     batched_runs_from_plan,
     decode_batch_kernel,
+    decode_frames_batch,
     decode_gather,
     decode_message_kernel,
     decode_run,
+    encode_frames_batch,
     runs_from_plan,
     wire_to_u32,
     wires_to_u32,
 )
+from .frame_pack import pack_frames_batch, unpack_frames_batch
 from .phit_unpack import (
     LAUNCHES,
     reset_launches,

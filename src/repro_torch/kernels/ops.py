@@ -1,4 +1,4 @@
-"""Public wrappers around the port's DES kernels (``phit_unpack``).
+"""Public wrappers around the port's kernels (``phit_unpack``, ``frame_pack``).
 
 ``decode_batch_kernel`` is the production DES payload pass of the serving
 plane: it takes the flat u32 lanes of a batch of wires plus the structure
@@ -7,6 +7,11 @@ the uniform-run kernel where the leaf is one run across the whole batch,
 the gather kernel otherwise (ragged containers).  It is the counterpart of
 ``repro.kernels.ops.decode_batch_kernel``, and its output equals
 ``core.vectorized.decode_batch`` on every row that lies inside its wire.
+
+``encode_frames_batch`` / ``decode_frames_batch`` are the routed fabric's
+batched SER and RX split (counterparts of the reference functions of the
+same names): the frame structure pass of ``fabric.frames`` plus one
+``pack_frames_batch`` launch, and one ``unpack_frames_batch`` launch.
 
 Tensors on a CUDA device launch the CUDA kernels; tensors on the CPU take
 the kernels' plain versions.  Lanes are ``int32`` tensors holding u32 bits.
@@ -20,6 +25,7 @@ import torch
 
 from ..core.vectorized import BatchedDecodePlan, DecodePlan, stack_wires
 from ..device import DeviceLike, default_device
+from .frame_pack import pack_frames_batch, unpack_frames_batch
 from .phit_unpack import unpack_gather, unpack_run
 
 
@@ -156,3 +162,35 @@ def decode_message_kernel(
         else:
             out[p] = decode_gather(wire_u32, plan.offsets[p], nbytes)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Routed-fabric SER / RX split
+# ---------------------------------------------------------------------------
+
+
+def encode_frames_batch(
+    payloads_u32: torch.Tensor,  # (B, Wcap) int32 lanes, one row per send
+    nbytes,  # (B,) true byte lengths
+    routes,  # (B, 3) (src, dst, seq0) per stream
+    list_level=1,  # int, or (B,) per-stream ListLevels
+    frame_phits: int = 16,
+    adaptive: bool = False,  # stamp the shortest-path route-word bit
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-destination SER: B wires -> B routed framed streams.
+
+    One vectorised structure pass (sizes, CRC32, route words) plus one
+    ``pack_frames_batch`` launch.  Returns (frames (B, F, width) int32
+    lanes, n_frames (B,))."""
+    from ..fabric.frames import frame_parts_batch
+
+    hdr, data, n_frames = frame_parts_batch(
+        payloads_u32, nbytes, routes, list_level=list_level,
+        frame_phits=frame_phits, adaptive=adaptive,
+    )
+    return pack_frames_batch(hdr, data), n_frames
+
+
+def decode_frames_batch(frames_u32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RX split of delivered frames: (N, width) -> (headers, payloads)."""
+    return unpack_frames_batch(frames_u32)

@@ -1,8 +1,8 @@
 """Serving entry points: the batched HGum message plane + continuous batching, on the card.
 
-Counterpart of the batched plane of ``repro.launch.serve``.  Requests
-arrive as HGum-serialized wires (``request_schema`` — a List of prompts of
-unknown lengths, the paper's List case):
+Counterpart of the batched and sharded planes of ``repro.launch.serve``.
+Requests arrive as HGum-serialized wires (``request_schema`` — a List of
+prompts of unknown lengths, the paper's List case):
 
 * **Batched plane (default)** — ``serve_requests`` takes MANY request wires
   at once.  One batched structure pass on the host
@@ -14,23 +14,31 @@ unknown lengths, the paper's List case):
   ``runtime.scheduler.ContinuousBatcher`` (fixed-slot KV cache, admit/evict
   per tick), and every response goes back through the HW->SW ``SerFSM`` in
   bulk (counts after elements — paper §IV-B).
+* **Sharded plane** — ``serve_requests_sharded`` routes the request wires
+  over the message fabric (``repro_torch.fabric``) from the ingress, rank 0,
+  to serving shards (ranks 1..R-1), each of which answers its share through
+  the batched plane; the response wires ride the fabric back.  The ranks
+  are rows of the fabric's tensors on the one card, and so are the shards'
+  batchers: they take turns on it.
 * **Sequential path (baseline)** — ``serve_request`` answers one wire at a
   time with the streaming-FSM DES and its own prefill/decode loop.
 
 Entry points run on the CUDA card unless the caller passes
-``device="cpu"``; without a card they raise.  The sharded and streaming
-planes of the reference are not ported yet.
+``device="cpu"``; without a card they raise.  The streaming plane of the
+reference is not ported yet.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
       --n-requests 16 --n-prompts 4 --max-new 32 --pad-to 256 --slots 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke --device cpu \
+      --sharded --n-shards 3
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -208,6 +216,257 @@ def serve_requests(
     return encode_response_batch(responses)
 
 
+# ---------------------------------------------------------------------------
+# Sharded plane — requests routed over the message fabric to per-shard
+# batchers
+# ---------------------------------------------------------------------------
+
+
+def place_requests(
+    router,
+    n_requests: int,
+    shards: List[int],
+    capacity: int,
+    weights: Optional[List[int]] = None,
+    exclude=(),
+) -> List[int]:
+    """Topology-aware ingress placement: each request goes to the nearest
+    shard with free capacity.
+
+    Shards are ordered by round-trip fabric distance from the ingress
+    (``Router.route_hops(0, s) + route_hops(s, 0)``, under the router's
+    routing mode); each request takes the nearest shard whose load is still
+    under ``capacity``, spilling to the next nearest when full, and the
+    least-loaded (nearest first) takes the overflow.  ``weights`` measures
+    each request's load (default one unit each).  ``exclude`` removes
+    shards entirely (the serve plane's suspects); excluding every shard
+    raises.  Placement cannot change tokens — rows decode independently —
+    only how far each request's wires travel.
+    """
+    live = [s for s in shards if s not in exclude]
+    if not live:
+        raise ValueError(
+            f"no healthy shard to place on: all of {sorted(shards)} are "
+            f"excluded (suspect)"
+        )
+    order = sorted(
+        live,
+        key=lambda s: (router.route_hops(0, s) + router.route_hops(s, 0), s),
+    )
+    w = weights if weights is not None else [1] * n_requests
+    load = {s: 0 for s in order}
+    placement = []
+    for i in range(n_requests):
+        free = [s for s in order if load[s] < capacity]
+        s = free[0] if free else min(order, key=lambda t: load[t])
+        placement.append(s)
+        load[s] += max(1, w[i])
+    return placement
+
+
+def default_serve_fabric(
+    n_shards: Optional[int] = None, routing: str = "shortest",
+    defect_after: int = 0, analyze: bool = False, arq: bool = True,
+    faults=None, device: DeviceLike = None,
+):
+    """The fabric ``serve_requests_sharded`` builds when none is passed:
+    rank 0 ingress plus ``n_shards`` serving shards (default 7: 8 ranks,
+    the reference's cap), shortest-path routed with the fused tick, on
+    ``device`` (default: the card).  ``defect_after=k`` enables
+    congestion-aware direction defection; ``arq=True`` (the serving
+    default) turns on reliable delivery, so seeded chaos (``faults``, a
+    ``fabric.faults.FaultPlan``) costs latency, not correctness.
+
+    The reference sizes the fabric by its devices; here the ranks are a
+    tensor axis on one card, so the count is ``n_shards + 1`` alone.
+    Returns None when fewer than 2 ranks result (no shard to route to)."""
+    from ..fabric import Fabric, FabricConfig
+
+    if analyze:
+        raise NotImplementedError(
+            "analyze=True waits for the port of the analyzer passes "
+            "(ROADMAP item 11)"
+        )
+    n_ranks = (n_shards + 1) if n_shards else 8
+    if n_ranks < 2:
+        return None
+    fab = Fabric(
+        n_ranks=n_ranks,
+        config=FabricConfig(frame_phits=16, routing=routing,
+                            defect_after=defect_after, arq=arq),
+        device=device,
+    )
+    fab.faults = faults
+    return fab
+
+
+def serve_requests_sharded(
+    params,
+    cfg,
+    wires: List[bytes],
+    max_new: int = 16,
+    pad_to: int = 64,
+    slots: int = 8,
+    admit_cap: Optional[int] = None,
+    n_shards: Optional[int] = None,
+    fabric=None,
+    placement: Optional[List[int]] = None,
+    routing: str = "shortest",
+    defect_after: int = 0,
+    analyze: bool = False,
+    metrics=None,
+    trace=None,
+    suspect_after: Optional[int] = 24,
+    deadline_ticks: Optional[int] = None,
+    device: DeviceLike = None,
+) -> List[bytes]:
+    """Answer N request wires across fabric-connected serving shards.
+
+    Rank 0 is the ingress: it routes each request wire over the fabric to
+    a serving shard (ranks 1..R-1, nearest free shard first —
+    ``place_requests``; pass ``placement`` to pin requests), every shard
+    answers its share through the batched plane (``serve_requests``), and
+    the response wires ride the fabric back to the ingress, which restores
+    request order.  Byte-identical to ``serve_requests`` on the same wires:
+    every prompt pads to the static ``pad_to`` and rows decode
+    independently, so placement cannot change the greedy outputs.
+
+    Failure awareness (with an ARQ fabric, the ``default_serve_fabric``
+    default): the loop ticks until every request is answered or
+    ``deadline_ticks`` ticks elapse (default 256 with ARQ, 3 without), and
+    a shard the ingress has not heard from for more than ``suspect_after``
+    ticks while it owes responses becomes a suspect: its outstanding
+    requests are re-placed once onto healthy shards.  A request whose
+    retry also dies raises.  ``suspect_after=None`` disables the detector.
+
+    With fewer than 2 ranks (no shard to route to) this is the batched
+    plane, as in the reference.  ``device`` (default: the card) must hold
+    ``params`` and the fabric's tensors.  ``metrics`` shares a
+    ``obs.MetricsRegistry`` with the fabric; ``analyze=True`` and
+    ``trace=`` wait for ROADMAP item 11 and raise.
+    """
+    dev = default_device(device)
+    _check_params_device(params, dev)
+    if analyze or trace is not None:
+        raise NotImplementedError(
+            "analyze=True and trace= wait for the port of the analyzer "
+            "passes and the trace export (ROADMAP item 11)"
+        )
+    if fabric is None:
+        fabric = default_serve_fabric(n_shards, routing=routing,
+                                      defect_after=defect_after, device=dev)
+    if fabric is None or fabric.n_ranks < 2:
+        return serve_requests(
+            params, cfg, wires, max_new=max_new, pad_to=pad_to,
+            slots=slots, admit_cap=admit_cap, device=dev,
+        )
+    if fabric.router.device != dev:
+        raise ValueError(f"fabric lives on {fabric.router.device}, serving "
+                         f"was asked on {dev}")
+    if metrics is not None:
+        fabric.metrics = metrics
+    shards = list(range(1, fabric.n_ranks))
+    ingress = fabric.mailbox(0)
+    if placement is None:
+        placement = place_requests(
+            fabric.router, len(wires), shards, capacity=max(1, slots)
+        )
+
+    # ingress -> shards: queue[s] is the FIFO of request indices shard s
+    # owes responses for (every (src, dst) stream delivers in order), so
+    # the k-th response arriving from s answers queue[s][k]
+    queue: Dict[int, List[int]] = {s: [] for s in shards}
+    for i, w in enumerate(wires):
+        queue[placement[i]].append(i)
+        ingress.send(placement[i], w)
+
+    arq = bool(fabric.config.arq)
+    watch = arq and suspect_after is not None
+    max_ticks = (deadline_ticks or 256) if arq else 3
+    t0_tick = fabric.ticks if arq else 0
+    answered: Dict[int, bytes] = {}
+    cursor = {s: 0 for s in shards}
+    suspects: set = set()
+    retried: set = set()
+    wait_since: Dict[int, int] = {}  # shard -> tick its current debt began
+    for _ in range(max_ticks):
+        fabric.exchange()
+        # each shard answers newly arrived request wires through the
+        # batched plane and sends the response wires back
+        for s in shards:
+            box = fabric.mailbox(s)
+            arrived = box.recv()
+            if s in suspects or not arrived:
+                continue
+            bad = [d.src for d in arrived if not d.ok]
+            if bad:
+                raise RuntimeError(
+                    f"shard {s}: corrupt request frames from {bad}")
+            resp = serve_requests(
+                params, cfg, [d.wire for d in arrived], max_new=max_new,
+                pad_to=pad_to, slots=slots, admit_cap=admit_cap, device=dev,
+            )
+            for rw in resp:
+                box.send(0, rw)
+        # ingress: responses arrive per shard in FIFO order; the FIRST
+        # answer (original or retry) wins — both are identical
+        for d in ingress.recv():
+            if not d.ok:
+                raise RuntimeError(
+                    f"ingress: corrupt response frames from {d.src}")
+            i = queue[d.src][cursor[d.src]]
+            cursor[d.src] += 1
+            answered.setdefault(i, d.wire)
+        if len(answered) == len(wires):
+            break
+        if not watch:
+            continue
+        for s in shards:
+            if s in suspects:
+                continue
+            outstanding = [i for i in queue[s][cursor[s]:]
+                           if i not in answered]
+            if not outstanding:
+                wait_since.pop(s, None)
+                continue  # a shard that owes nothing goes quiet, fine
+            # the horizon starts when the shard last spoke OR when its
+            # current debt began, whichever is later
+            since = wait_since.setdefault(s, fabric.ticks)
+            heard = fabric.ticks_since_heard(0, s)
+            waited = (fabric.ticks - t0_tick) if heard is None else heard
+            waited = min(waited, fabric.ticks - since)
+            if waited <= suspect_after:
+                continue
+            # rank s went silent with responses outstanding: suspect it and
+            # retry its in-flight requests elsewhere, once
+            suspects.add(s)
+            fabric.metrics.counter("serve.suspects").add(1)
+            twice = [i for i in outstanding if i in retried]
+            if twice:
+                raise RuntimeError(
+                    f"sharded serve: request(s) {twice} failed on shard "
+                    f"{s} after a retry — no healthy shard answered")
+            repl = place_requests(
+                fabric.router, len(outstanding), shards,
+                capacity=max(1, slots), exclude=suspects)
+            for i, s2 in zip(outstanding, repl):
+                retried.add(i)
+                queue[s2].append(i)
+                ingress.send(s2, wires[i])
+                fabric.metrics.counter("serve.retries").add(1)
+    if len(answered) < len(wires):
+        missing = sorted(i for i in range(len(wires)) if i not in answered)
+        raise RuntimeError(
+            f"sharded serve: {len(missing)} request(s) unanswered after "
+            f"{max_ticks} fabric ticks (missing {missing[:8]})")
+    out = [answered[i] for i in range(len(wires))]
+    if metrics is not None:
+        metrics.gauge("fabric.load_drift.entries").set(
+            len(fabric.load_drift())
+        )
+    return out
+
+
 def synthetic_wires(cfg, n_requests: int, n_prompts: int, seed: int = 0,
                     min_len: int = 4, max_len: int = 24) -> List[bytes]:
     """Request wires with prompts of ``[min_len, max_len)`` random tokens."""
@@ -233,6 +492,38 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--sequential", action="store_true",
                     help="use the one-wire-at-a-time path")
+    ap.add_argument("--sharded", action="store_true",
+                    help="route requests over the message fabric to "
+                         "per-shard batchers (ranks 1..N serve, rank 0 ingress)")
+    ap.add_argument("--n-shards", type=int, default=None,
+                    help="serving shards for --sharded (default 7)")
+    ap.add_argument("--routing", choices=("shortest", "dimension"),
+                    default="shortest",
+                    help="fabric routing mode for --sharded: per-frame "
+                         "shortest ring direction (default) or the +1-only "
+                         "dimension order")
+    ap.add_argument("--defect-after", type=int, default=0,
+                    help="congestion-aware routing: let a frame defect to "
+                         "the opposite ring direction after its preferred "
+                         "link has been credit-starved for this many "
+                         "consecutive router steps (0 = static shortest)")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="seeded deterministic fault injection on the serve "
+                         "fabric: 'drop=0.02,corrupt=0.01,...' (see "
+                         "repro_torch.fabric.faults.parse_chaos); "
+                         "deterministic in --seed")
+    ap.add_argument("--no-arq", action="store_true",
+                    help="disable ARQ reliable delivery on the serve fabric "
+                         "(corruption is flagged, never recovered)")
+    ap.add_argument("--suspect-after", type=int, default=24,
+                    help="mark a shard suspect — and retry its in-flight "
+                         "requests on a healthy shard — after this many "
+                         "fabric ticks without hearing from it (needs ARQ; "
+                         "0 disables)")
+    ap.add_argument("--deadline-ticks", type=int, default=None,
+                    help="max fabric ticks to wait on in-flight deliveries "
+                         "before the serve gives up (default 256 with ARQ, "
+                         "3 without)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs on the host)")
@@ -246,18 +537,40 @@ def main(argv: Optional[List[str]] = None) -> None:
     wires = synthetic_wires(cfg, args.n_requests, args.n_prompts, args.seed)
     print(f"[serve] {len(wires)} request wires, {sum(len(w) for w in wires)} bytes "
           f"total, device {dev}")
+    fabric = None
+    if args.sharded:
+        from ..fabric import parse_chaos
+
+        faults = parse_chaos(args.chaos, args.seed) if args.chaos else None
+        fabric = default_serve_fabric(
+            args.n_shards, routing=args.routing, defect_after=args.defect_after,
+            arq=not args.no_arq, faults=faults, device=dev)
+        if args.chaos and fabric is None:
+            raise SystemExit("--chaos needs a multi-rank fabric (--n-shards >= 1)")
     t0 = time.perf_counter()
     if args.sequential:
         resp_wires = [serve_request(params, cfg, w, max_new=args.max_new,
                                     pad_to=args.pad_to, device=dev) for w in wires]
+    elif args.sharded:
+        resp_wires = serve_requests_sharded(
+            params, cfg, wires, max_new=args.max_new, pad_to=args.pad_to,
+            slots=args.slots, fabric=fabric,
+            suspect_after=args.suspect_after if args.suspect_after > 0 else None,
+            deadline_ticks=args.deadline_ticks, device=dev)
     else:
         resp_wires = serve_requests(params, cfg, wires, max_new=args.max_new,
                                     pad_to=args.pad_to, slots=args.slots, device=dev)
     dt = time.perf_counter() - t0
     n_tok = sum(len(o) for rw in resp_wires for o in decode_response(rw)[1])
-    mode = "sequential" if args.sequential else f"batched(slots={args.slots})"
+    mode = ("sequential" if args.sequential
+            else f"sharded(slots={args.slots})" if args.sharded
+            else f"batched(slots={args.slots})")
     print(f"[serve] {mode}: {len(wires)} requests, {n_tok} tokens in {dt:.2f}s "
           f"({len(wires)/dt:.2f} req/s, {n_tok/dt:.1f} tok/s)")
+    if fabric is not None:
+        print(f"[serve] fabric: {fabric.n_ranks} ranks, {fabric.ticks} ticks, "
+              f"{fabric.router.scan_steps} router scan steps, "
+              f"{fabric.frames_routed} frames routed")
     rid, outs = decode_response(resp_wires[0])
     for i, o in enumerate(outs[:2]):
         print(f"  req {rid} out[{i}][:8] = {o[:8]}")

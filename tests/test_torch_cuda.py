@@ -1,4 +1,5 @@
-"""The port on the card: CUDA kernels against their plain versions.
+"""The port on the card: CUDA kernels against their plain versions, and the
+routed fabric and sharded plane on the card against the host.
 
 Every test here needs a CUDA device; on a host without one they skip.  The
 file imports no JAX, so it runs on the card's machine as it is:
@@ -15,6 +16,8 @@ import torch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import batch_plans, lanes_u32
 from repro_torch.data.schemas import request_schema
+from repro_torch.fabric import Fabric, FabricConfig, FaultPlan
+from repro_torch.kernels import frame_pack as fp
 from repro_torch.kernels import ops, phit_unpack as pu
 from repro_torch.launch import serve
 from repro_torch.models import init_params
@@ -115,3 +118,84 @@ def test_smoke_serve_on_card_equals_host(cuda_device):
     got = serve.serve_requests(params_gpu, cfg, wires, device=cuda_device, **kw)
     assert pu.LAUNCHES["unpack_run_aligned"] >= 1 and pu.LAUNCHES["unpack_gather"] >= 1
     assert got == serve.serve_requests(params_cpu, cfg, wires, device="cpu", **kw)
+
+
+# ---------------------------------------------------------------------------
+# frame kernels (B5 pack_frames_batch, B6 unpack_frames_batch)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,F,fw", [(0, 3, 64), (1, 1, 4), (3, 5, 64), (17, 2, 2000),
+                                    (256, 9, 64)])
+def test_pack_frames_kernel_equals_plain(cuda_device, B, F, fw):
+    g = torch.Generator(device=cuda_device).manual_seed(B + fw)
+    hdr = torch.randint(-2**31, 2**31, (B, F, 4), dtype=torch.int32, device=cuda_device,
+                        generator=g)
+    pay = torch.randint(-2**31, 2**31, (B, F, fw), dtype=torch.int32, device=cuda_device,
+                        generator=g)
+    before = fp.LAUNCHES["pack_frames_batch"]
+    got = fp.pack_frames_batch(hdr, pay)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["pack_frames_batch"] == before + (1 if B * F else 0)
+    assert torch.equal(got, fp.pack_frames_batch_plain(hdr, pay))
+
+
+@pytest.mark.parametrize("N,fw", [(0, 64), (1, 64), (1, 4), (7, 4), (1000, 64), (33, 2000)])
+def test_unpack_frames_kernel_equals_plain(cuda_device, N, fw):
+    g = torch.Generator(device=cuda_device).manual_seed(N + fw)
+    fr = torch.randint(-2**31, 2**31, (N, 4 + fw), dtype=torch.int32, device=cuda_device,
+                       generator=g)
+    before = fp.LAUNCHES["unpack_frames_batch"]
+    hdr, pay = fp.unpack_frames_batch(fr)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["unpack_frames_batch"] == before + (1 if N else 0)
+    want = fp.unpack_frames_batch_plain(fr)
+    assert torch.equal(hdr, want[0]) and torch.equal(pay, want[1])
+
+
+def test_frame_kernel_wrappers_refuse_mixed_devices(cuda_device):
+    with pytest.raises(ValueError, match="different devices"):
+        fp.pack_frames_batch(torch.zeros(2, 4, dtype=torch.int32, device=cuda_device),
+                             torch.zeros(2, 8, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "programs"])
+def test_fabric_on_card_equals_host(cuda_device, fused):
+    """Seeded sends, ARQ under faults: the card delivers what the host
+    delivers, and both frame kernels launch."""
+    rng = np.random.default_rng(3)
+    sends = [(int(rng.integers(8)), int(rng.integers(8)),
+              rng.integers(0, 256, int(rng.integers(1, 600)), dtype=np.uint8).tobytes(),
+              int(rng.integers(1, 4))) for _ in range(24)]
+    out = []
+    fp.reset_launches()
+    for dev in (cuda_device, "cpu"):
+        fab = Fabric(n_ranks=8, config=FabricConfig(arq=True, retransmit_timeout=2,
+                                                    fused=fused), device=dev)
+        fab.faults = FaultPlan(seed=5, drop=0.05, corrupt=0.05)
+        for s, d, w, lvl in sends:
+            fab.send(s, d, w, lvl)
+        got = []
+        for _ in range(30):
+            fab.exchange()
+            for r in range(8):
+                got += [(r, x.src, x.wire, x.ok, x.arrive_step, x.attribution)
+                        for x in fab.mailbox(r).recv()]
+        out.append((got, fab.counters_total()))
+    assert out[0][0] == out[1][0] and len(out[0][0]) == len(sends)
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    assert fp.LAUNCHES["pack_frames_batch"] >= 1 and fp.LAUNCHES["unpack_frames_batch"] >= 1
+
+
+def test_sharded_serve_on_card_equals_host(cuda_device):
+    cfg = smoke_config(get_config("yi-6b"))
+    params_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params_gpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(cuda_device)
+    wires = serve.synthetic_wires(cfg, 5, 3, seed=4)
+    kw = dict(max_new=4, pad_to=16, slots=4, n_shards=3)
+    fp.reset_launches()
+    got = serve.serve_requests_sharded(params_gpu, cfg, wires, device=cuda_device, **kw)
+    assert fp.LAUNCHES["pack_frames_batch"] >= 1 and fp.LAUNCHES["unpack_frames_batch"] >= 1
+    assert got == serve.serve_requests_sharded(params_cpu, cfg, wires, device="cpu", **kw)
+    assert got == serve.serve_requests(params_gpu, cfg, wires, device=cuda_device,
+                                       max_new=4, pad_to=16, slots=4)

@@ -2,11 +2,15 @@
 
 The same request wires and the same (carried-over) parameters go through
 both ``serve_requests``; the response wires must be byte-identical, with
-more sequences than slots so that eviction and slot reuse run.  Also here:
-the scheduler's emission order, the batched request DES, the package's
-import isolation (no JAX, nothing of ``repro``) and the absence of a
-hidden CPU fallback.
+more sequences than slots so that eviction and slot reuse run.  The
+sharded plane (``serve_requests_sharded``, the routed fabric with ARQ,
+with and without a shard blackout) must answer with the same bytes as the
+reference's sharded plane and the port's batched plane.  Also here: the
+scheduler's emission order, the batched request DES, the package's import
+isolation (no JAX, nothing of ``repro``) and the absence of a hidden CPU
+fallback.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -39,6 +43,15 @@ def models():
     torch.backends.cudnn.allow_tf32 = False
     jcfg = j_smoke_config(j_get_config("yi-6b"))
     cfg = smoke_config(get_config("yi-6b"))
+    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
+    return jcfg, jparams, cfg, params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+
+
+@pytest.fixture(scope="module")
+def two_layer_models():
+    """The smoke yi-6b cut to 2 layers, both packages, same parameters."""
+    jcfg = dataclasses.replace(j_smoke_config(j_get_config("yi-6b")), n_layers=2)
+    cfg = dataclasses.replace(smoke_config(get_config("yi-6b")), n_layers=2)
     jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
     return jcfg, jparams, cfg, params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
 
@@ -115,6 +128,84 @@ def test_cli_smoke_on_cpu(capsys):
 
 
 # ---------------------------------------------------------------------------
+# sharded plane: the routed fabric between ingress and shards
+# ---------------------------------------------------------------------------
+
+_SHARD_KW = dict(max_new=4, pad_to=8, slots=4)
+
+
+def _shard_wires(cfg):
+    r = np.random.default_rng(0)
+    return [tserve.encode_request(i, [list(map(int, r.integers(2, cfg.vocab, 12)))
+                                      for _ in range(2)]) for i in range(4)]
+
+
+def test_serve_requests_sharded_byte_identical(two_layer_models):
+    """n_shards=3 with ARQ (the serving default): the same bytes as the
+    reference's sharded plane and as the port's batched plane."""
+    jcfg, jparams, cfg, tparams = two_layer_models
+    wires = _shard_wires(cfg)
+    base = tserve.serve_requests(tparams, cfg, wires, device="cpu", **_SHARD_KW)
+    want = jserve.serve_requests_sharded(jparams, jcfg, wires, n_shards=3, **_SHARD_KW)
+    fab = tserve.default_serve_fabric(3, device="cpu")
+    got = tserve.serve_requests_sharded(tparams, cfg, wires, fabric=fab, device="cpu",
+                                        **_SHARD_KW)
+    assert got == want == base
+    assert fab.n_ranks == 4 and fab.config.arq and fab.config.frame_phits == 16
+    assert fab.frames_routed > 0 and fab.load_drift() == {}
+
+
+def test_sharded_blackout_completes(two_layer_models):
+    """Shard 2 goes dark from tick 1 (its responses never arrive): the
+    ingress suspects it, re-places its requests once, and the answers stay
+    byte-identical — as in the reference, with the same recovery counters."""
+    from repro.fabric import FaultPlan as JFaultPlan
+    from repro_torch.fabric import FaultPlan
+
+    jcfg, jparams, cfg, tparams = two_layer_models
+    wires = _shard_wires(cfg)
+    plan = dict(seed=7, blackout_rank=2, blackout_from=1, blackout_ticks=1 << 20)
+    kw = dict(placement=[1, 2, 3, 2], suspect_after=8, **_SHARD_KW)
+    jfab = jserve.default_serve_fabric(3, faults=JFaultPlan(**plan))
+    want = jserve.serve_requests_sharded(jparams, jcfg, wires, fabric=jfab, **kw)
+    fab = tserve.default_serve_fabric(3, faults=FaultPlan(**plan), device="cpu")
+    got = tserve.serve_requests_sharded(tparams, cfg, wires, fabric=fab, device="cpu", **kw)
+    assert got == want
+    assert got == tserve.serve_requests(tparams, cfg, wires, device="cpu", **_SHARD_KW)
+
+    def counters(f):
+        return {m["name"]: m["value"] for m in f.metrics.snapshot()["metrics"]
+                if m["type"] == "counter" and m["name"].startswith(("serve.", "fabric.arq."))}
+
+    assert counters(fab) == counters(jfab)
+    assert counters(fab)["serve.suspects"] >= 1 and counters(fab)["serve.retries"] >= 1
+    assert fab.ticks == jfab.ticks
+    np.testing.assert_array_equal(fab.counters_total(), jfab.counters_total())
+
+
+def test_sharded_with_one_rank_is_the_batched_plane(two_layer_models):
+    _, _, cfg, tparams = two_layer_models
+    from repro_torch.fabric import Fabric
+
+    wires = _shard_wires(cfg)[:2]
+    got = tserve.serve_requests_sharded(tparams, cfg, wires, device="cpu",
+                                        fabric=Fabric(n_ranks=1, device="cpu"), **_SHARD_KW)
+    assert got == tserve.serve_requests(tparams, cfg, wires, device="cpu", **_SHARD_KW)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        tserve.serve_requests_sharded(tparams, cfg, wires, device="cpu", analyze=True)
+
+
+def test_cli_sharded_on_cpu(capsys):
+    tserve.main(["--arch", "yi-6b", "--smoke", "--device", "cpu", "--n-requests", "3",
+                 "--n-prompts", "2", "--max-new", "2", "--pad-to", "8", "--slots", "2",
+                 "--sharded", "--n-shards", "3", "--chaos", "drop=0.05", "--routing",
+                 "dimension"])
+    out = capsys.readouterr().out
+    assert "sharded(slots=2): 3 requests, 12 tokens" in out
+    assert "[serve] fabric: 4 ranks" in out
+
+
+# ---------------------------------------------------------------------------
 # no hidden fallback, import isolation
 # ---------------------------------------------------------------------------
 
@@ -124,11 +215,17 @@ def test_entry_points_default_to_cuda(models):
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is valid here")
     wires = _wires(cfg, np.random.default_rng(4), n_prompts=(1,))
+    from repro_torch.fabric import Fabric, Router
     from repro_torch.models import init_params
     for call in (lambda: tserve.serve_requests(tparams, cfg, wires),
                  lambda: tserve.serve_request(tparams, cfg, wires[0]),
                  lambda: tserve.decode_request_batch(wires),
-                 lambda: init_params(cfg)):
+                 lambda: init_params(cfg),
+                 lambda: Fabric(n_ranks=4),
+                 lambda: Router((4,)),
+                 lambda: tserve.default_serve_fabric(3),
+                 lambda: tserve.serve_requests_sharded(tparams, cfg, wires, n_shards=3),
+                 lambda: tserve.main(["--arch", "yi-6b", "--smoke", "--sharded"])):
         with pytest.raises(NoCudaError, match="device='cpu'"):
             call()
 
@@ -154,12 +251,19 @@ bad = sorted(m for m in sys.modules
 print(len(mods), bad)
 assert not bad, bad
 assert len(mods) >= 30, mods
+new = {{"repro_torch.fabric.frames", "repro_torch.fabric.router",
+        "repro_torch.fabric.mailbox", "repro_torch.fabric.faults",
+        "repro_torch.kernels.frame_pack", "repro_torch.analysis.comm",
+        "repro_torch.analysis.rules", "repro_torch.obs.counters",
+        "repro_torch.obs.metrics"}}
+assert new <= set(mods), new - set(mods)
 """
 
 
 def test_import_isolation():
-    """Every module of the port and every import of chip_smoke.py loads
-    without JAX or the JAX package."""
+    """Every module of the port (the fabric, its frame kernels and the
+    copied analysis and obs modules included) and every import of
+    chip_smoke.py loads without JAX or the JAX package."""
     code = _ISOLATION.format(src=str(ROOT / "src"), smoke=str(ROOT / "chip_smoke.py"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
