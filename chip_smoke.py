@@ -32,10 +32,24 @@ What it does, in order (any failed check raises and the exit code is 1):
    batched plane's from phase 3, and the frame kernels' launch counters
    must rise.  Prints req/s, tok/s, fabric ticks, router scan steps per
    tick and host ms per tick.
-7. Frame kernels: ``pack_frames_batch`` and ``unpack_frames_batch``
+7. Streaming: ``serve_requests_streaming`` on the same parameters and
+   wires, 3 shards, default placement (by sequence weight), ARQ on, once
+   with ``overlap=True, logprobs=True`` and once with ``overlap=False,
+   logprobs=False``: the final wires must equal the batched plane's, every
+   stream's ``on_token`` tokens in step order that sequence's output, the
+   logprob stream's tokens the token stream's, and every logprob must be
+   finite and <= 0; the B7 launch counter must rise.  Prints req/s, tok/s,
+   TTFT per stream (p50, p95, max), fabric ticks, host ms per tick, the
+   ``poll()`` wait per tick, B7 launches and requests per shard.
+8. Frame kernels: ``pack_frames_batch`` and ``unpack_frames_batch``
    against their plain versions, bit for bit, at the calls phase 6 made
    (recorded by the wrappers) and at one large shape (2**20 frames of 68
    words, 272 MiB), with their times, bounds and plain and library times.
+9. Fragment kernel: ``pack_chunks_batch`` (B7) against its plain version,
+   bit for bit, at the calls phase 7 made (recorded) and at two large
+   shapes (2**20 fragments x cap 64, one word each, and 2**19 x cap 32,
+   two words each, seeded counts 0..cap; masked, and the first unmasked
+   too), with its times, bound and plain and library times.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -44,6 +58,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -65,6 +80,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.steps import cached_serve_steps  # noqa: E402
 from repro_torch.models import init_params, param_count  # noqa: E402
 from repro_torch.models import prefill as model_prefill  # noqa: E402
+from repro_torch.obs.metrics import window_stats  # noqa: E402
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
@@ -83,7 +99,10 @@ KERNELS = {
     "unpack_frames_batch": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:168",
                             fp.unpack_frames_batch_plain, fp.unpack_frames_batch,
                             fp.LAUNCHES),
+    "pack_chunks_batch": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:118",
+                          fp.pack_chunks_batch_plain, fp.pack_chunks_batch, fp.LAUNCHES),
 }
+FRAME_KERNELS = ("pack_frames_batch", "unpack_frames_batch")
 
 # serve load (phase 3)
 N_REQUESTS, N_PROMPTS, PROMPT_LENS = 16, 4, (16, 257)
@@ -91,9 +110,11 @@ PAD_TO, MAX_NEW, SLOTS, SEED = 256, 32, 16, 0
 # record path (phase 4): hdr Bytes 3 + Array<Bytes 13>
 RECORD_SCHEMA = {"Recs": [["hdr", ["Bytes", 3]], ["recs", ["Array", ["Bytes", 13]]]]}
 N_RECORDS = 1 << 20
-# sharded plane (phase 6) and the frame kernels' large shape (phase 7)
+# sharded plane (phase 6) and the frame kernels' large shape (phase 8)
 N_SHARDS = 3
 N_FRAMES_LARGE, FRAME_WORDS = 1 << 20, 64
+# the fragment kernel's large shapes (phase 9): (fragments, cap, elem_words)
+CHUNK_LARGE = ((1 << 20, 64, 1), (1 << 19, 32, 2))
 
 
 def log(msg: str) -> None:
@@ -129,8 +150,18 @@ def call_bytes(kernel: str, wire: torch.Tensor, *args) -> int:
     cover (read once, at most the whole wire), the offsets for the gather,
     the lanes written.  Frame kernels: every input word read once and
     every output word written once, i.e. twice the inputs' bytes."""
-    if kernel in ("pack_frames_batch", "unpack_frames_batch"):
+    if kernel in FRAME_KERNELS:
         return 2 * 4 * sum(t.numel() for t in (wire,) + args)
+    if kernel == "pack_chunks_batch":
+        # meta and counts read, every row written; element words read only
+        # where they are live (the masked form reads no word past the count)
+        tokens, counts, elem_words = args
+        rows, cap_w = tokens.shape
+        if elem_words:
+            live = int(torch.clamp(counts.long() * elem_words, max=cap_w).sum())
+        else:
+            live = rows * cap_w
+        return 4 * (wire.numel() + counts.numel() + live + rows * (cap_w + 4))
     args = tuple(args)
     if kernel == "unpack_gather":
         offsets, nbytes = args
@@ -292,9 +323,9 @@ def library_frame_ms(name: str, calls, reps: int) -> float:
 
 
 def phase_frame_kernels(dev, recorded):
-    """Phase 7: each frame kernel == plain at the calls the sharded serve
+    """Phase 8: each frame kernel == plain at the calls the sharded serve
     made (recorded) and at 2**20 frames of 4 + 64 words."""
-    calls = {name: [] for name in fp.LAUNCHES}
+    calls = {name: [] for name in FRAME_KERNELS}
     for name, args in recorded:
         calls[name].append(args)
     g = torch.Generator(device=dev).manual_seed(11)
@@ -310,7 +341,7 @@ def phase_frame_kernels(dev, recorded):
             generator=g),)],
     }
     rows = {}
-    for name in fp.LAUNCHES:
+    for name in FRAME_KERNELS:
         check(len(calls[name]) >= 1, f"{name}: no call recorded on the sharded path")
         m = measure(name, calls[name], reps=200)
         lg = measure(name, large[name], reps=20)
@@ -515,7 +546,7 @@ def sharded_run(dev, params, cfg, wires, base, placement, label: str):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
-    for name in fp.LAUNCHES:
+    for name in FRAME_KERNELS:
         check(launches[name] >= 1, f"sharded serve launched no {name}")
     n_out = check_responses(cfg, resp)
     for m, (a, b) in enumerate(zip(resp, base)):
@@ -542,6 +573,150 @@ def phase_sharded(dev, params, cfg, wires, base):
             sharded_run(dev, params, cfg, wires, base,
                         [1 + i % N_SHARDS for i in range(len(wires))], "round-robin")]
     return [r[0] for r in runs], [c for r in runs for c in r[1]]
+
+
+def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool):
+    """One streaming serve on a fresh default serve fabric; every check of
+    phase 7.  Returns its launches and the B7 calls it made (recorded)."""
+    fab = serve.default_serve_fabric(N_SHARDS, device=dev)
+    host_s = {"exchange_async": [], "poll": []}
+    for name in host_s:
+        inner = getattr(fab, name)
+
+        def timed(inner=inner, acc=host_s[name]):
+            t = time.perf_counter()
+            out = inner()
+            acc.append(time.perf_counter() - t)
+            return out
+
+        setattr(fab, name, timed)  # exchange() calls both through these
+    shards = list(range(1, fab.n_ranks))
+    placed = serve.place_requests(fab.router, len(wires), shards, capacity=SLOTS,
+                                  weights=[N_PROMPTS] * len(wires))
+    label = f"overlap={overlap} logprobs={logprobs}"
+    log(f"[stream] {label}: requests per shard "
+        f"{ {s: placed.count(s) for s in shards} }")
+    toks, first, lps = {}, {}, {}
+
+    def on_token(m, j, step, tok):
+        first.setdefault((m, j), time.perf_counter())
+        check(step == len(toks.setdefault((m, j), [])), f"stream {(m, j)}: step out of order")
+        toks[(m, j)].append(int(tok))
+
+    def on_logprob(m, j, step, tok, lp):
+        check(step == len(lps.setdefault((m, j), [])), f"logprobs {(m, j)}: step out of order")
+        lps[(m, j)].append((int(tok), lp))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with fp.recording() as made:
+        resp = serve.serve_requests_streaming(
+            params, cfg, wires, max_new=MAX_NEW, pad_to=PAD_TO, slots=SLOTS, fabric=fab,
+            overlap=overlap, logprobs=logprobs, on_token=on_token,
+            on_logprob=on_logprob if logprobs else None, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["pack_chunks_batch"] >= 1, "streaming serve launched no pack_chunks_batch")
+    n_out = check_responses(cfg, resp)
+    for m, (a, b) in enumerate(zip(resp, base)):
+        check(a == b, f"streamed response {m} differs from the batched plane's")
+        for j, out in enumerate(serve.decode_response(b)[1]):
+            check(toks.get((m, j)) == out, f"stream {(m, j)}: on_token tokens differ from "
+                                           f"the batched plane's output")
+    if logprobs:
+        check(set(lps) == set(toks), "logprob streams != token streams")
+        for key, pairs in lps.items():
+            check([t for t, _ in pairs] == toks[key], f"logprob stream {key}: tokens differ")
+            check(all(np.isfinite(v) and v <= 0.0 for _, v in pairs),
+                  f"logprob stream {key}: a logprob is not finite or > 0")
+    ttft = [first[k] - t0 for k in sorted(first)]
+    tail = window_stats(ttft)  # the repo's ceil-rank p95
+    ticks = fab.ticks
+    fabric_s = sum(host_s["exchange_async"]) + sum(host_s["poll"])
+    polls = host_s["poll"]
+    result = {"s": dt, "req_s": len(wires) / dt, "tok_s": n_out / dt,
+              "ttft_p50": statistics.median(ttft), "ttft_p95": tail["p95"],
+              "ttft_max": tail["max"], "ticks": ticks,
+              "fabric_ms_tick": 1e3 * fabric_s / ticks, "wall_ms_tick": 1e3 * dt / ticks,
+              "poll_ms": 1e3 * sum(polls) / max(1, len(polls)), "polls": len(polls),
+              "b7": launches["pack_chunks_batch"], "per_shard": {s: placed.count(s) for s in shards}}
+    log(f"[stream] {label}: {len(wires)} requests, {n_out} tokens in {dt:.3f} s: "
+        f"{result['req_s']:.3f} req/s, {result['tok_s']:.1f} tok/s; every wire == the "
+        f"batched plane's, every stream == its sequence" + ("; logprobs == token stream, "
+                                                            "finite, <= 0" if logprobs else ""))
+    log(f"[stream] {label}: TTFT per stream (s from serve start, {len(ttft)} streams) p50 "
+        f"{result['ttft_p50']:.3f} p95 {result['ttft_p95']:.3f} max {result['ttft_max']:.3f}")
+    log(f"[stream] {label}: {ticks} fabric ticks, {fab.router.scan_steps} router scan steps, "
+        f"{fab.frames_routed} frames; host ms per tick: fabric (exchange_async + poll) "
+        f"{result['fabric_ms_tick']:.3f}, serve wall {result['wall_ms_tick']:.3f}; poll() "
+        f"wait {result['poll_ms']:.3f} ms per call over {len(polls)} calls (max "
+        f"{1e3 * max(polls, default=0.0):.3f}); B7 launches {result['b7']}; launches "
+        f"{launches}")
+    return launches, made, result
+
+
+def phase_streaming(dev, params, cfg, wires, base):
+    """Phase 7: the streaming plane, overlap and logprobs on, then both off.
+    Returns each run's launches, the B7 calls of both, and their numbers."""
+    runs = [streaming_run(dev, params, cfg, wires, base, overlap=True, logprobs=True),
+            streaming_run(dev, params, cfg, wires, base, overlap=False, logprobs=False)]
+    a, b = runs[0][2], runs[1][2]
+    log(f"[stream] overlap on / off: wall {a['s']:.3f} / {b['s']:.3f} s; poll() wait per "
+        f"tick {a['poll_ms']:.3f} / {b['poll_ms']:.3f} ms; fabric host ms per tick "
+        f"{a['fabric_ms_tick']:.3f} / {b['fabric_ms_tick']:.3f}")
+    calls = [args for r in runs for name, args in r[1] if name == "pack_chunks_batch"]
+    return [r[0] for r in runs], calls
+
+
+def library_chunks_ms(calls, reps: int) -> float:
+    """``torch.where`` (masked form; the column index is an input) and
+    ``torch.cat``: the PyTorch calls that compute the same rows, checked
+    equal to the kernel first."""
+    cols = {a[1].shape[1]: torch.arange(a[1].shape[1], device=a[1].device) for a in calls}
+
+    def one(meta, toks, counts, ew):
+        if ew:
+            toks = torch.where(cols[toks.shape[1]] < counts * ew, toks, 0)
+        return torch.cat([meta, toks, counts], -1)
+
+    check(all(same(one(*a), fp.pack_chunks_batch(*a)) for a in calls),
+          "pack_chunks_batch: library calls differ")
+    return time_ms(lambda: [one(*a) for a in calls], reps)
+
+
+def phase_chunk_kernel(dev, calls):
+    """Phase 9: B7 == plain at the streaming serve's recorded calls and at
+    the two large shapes (masked; the first also unmasked)."""
+    check(len(calls) >= 1, "pack_chunks_batch: no call recorded on the streaming path")
+    name = "pack_chunks_batch"
+    m = measure(name, calls, reps=20)
+    m["library_ms"] = library_chunks_ms(calls, 20)
+    shapes = sorted({(tuple(a[1].shape), a[3]) for a in calls})
+    log(f"[kernels] {name}: {len(calls)} recorded calls, (tokens shape, elem_words) {shapes}")
+    g = torch.Generator(device=dev).manual_seed(13)
+    large = []
+    for n, cap, ew in CHUNK_LARGE:
+        meta = torch.randint(-2**31, 2**31, (n, 3), dtype=torch.int32, device=dev, generator=g)
+        toks = torch.randint(-2**31, 2**31, (n, cap * ew), dtype=torch.int32, device=dev,
+                             generator=g)
+        counts = torch.randint(0, cap + 1, (n, 1), dtype=torch.int32, device=dev, generator=g)
+        large.append((f"{n} x cap {cap} x {ew} words, masked", [(meta, toks, counts, ew)]))
+        if ew == 1:
+            large.append((f"{n} x cap {cap}, unmasked", [(meta, toks, counts, 0)]))
+    err = m["max_abs_err"]
+    for label, lc in [("main-path shapes", None)] + large:
+        r = m if lc is None else measure(name, lc, reps=20)
+        if lc is not None:
+            r["library_ms"] = library_chunks_ms(lc, 20)
+        err = max(err, r["max_abs_err"])
+        log(f"[kernels] {name:20s} {label:34s} kernel {r['ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bytes']} B)  plain {r['plain_ms']:.4f} ms  "
+            f"where/cat {r['library_ms']:.4f} ms  max_abs_err {r['max_abs_err']}")
+    rows = {"main": m, "large": {"max_abs_err": err}}
+    del large
+    torch.cuda.empty_cache()
+    return {name: rows}
 
 
 def main() -> int:
@@ -574,9 +749,12 @@ def main() -> int:
                      phase_fabric(dev)]
     sharded_launches, recorded = phase_sharded(dev, params, cfg, wires, base)
     path_launches += sharded_launches
+    streaming_launches, chunk_calls = phase_streaming(dev, params, cfg, wires, base)
+    path_launches += streaming_launches
     del params
     torch.cuda.empty_cache()
     rows.update(phase_frame_kernels(dev, recorded))
+    rows.update(phase_chunk_kernel(dev, chunk_calls))
 
     records = []
     for name, (source, replaces, _, _, _) in KERNELS.items():

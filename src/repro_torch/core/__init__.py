@@ -3,8 +3,9 @@
 ``idl``, ``schema_tree``, ``tokens``, ``framing``, ``fsm`` and
 ``sw_serdes`` use no framework and are copies of the reference modules of
 the same names.  ``vectorized`` keeps the numpy structure passes and writes
-the payload pass in torch.  Same public names as ``repro.core``, minus the
-parts not ported yet (``stream_plans``, ``encode_leaf``/``encode_message``).
+the payload pass in torch.  ``stream_plans`` is a copy whose burst encoder
+packs on the card (the B7 kernel).  Same public names as ``repro.core``,
+minus the parts not ported yet (``encode_leaf``/``encode_message``).
 """
 from .idl import (
     Array,
@@ -29,6 +30,14 @@ from .schema_tree import (
     build_rom,
     build_tree,
     tree_depth,
+)
+from .stream_plans import (
+    Fragment,
+    StreamPlan,
+    decode_fragments,
+    encode_fragment,
+    encode_fragment_burst,
+    stream_plans,
 )
 from .tokens import (
     TOK_ARRAY_END,

@@ -27,7 +27,11 @@ before returning) and :meth:`Fabric.exchange_async` + :meth:`Fabric.poll`
 (depth-1 double buffer: the RX readback and reassembly wait for the next
 ``poll``; per-(src, dst) order is kept).  In eager torch the early-exit
 router scan syncs with the host once per scan step, so the dispatch half
-is not free of host syncs as the reference's is.
+is not free of host syncs as the reference's is.  On the card the fused
+tick ends by copying its outputs into pinned host buffers without blocking
+and recording an event; ``poll`` waits on that event only, not on work
+queued on the stream after the tick (the next decode step of a streaming
+serve), which is how the reference's overlap works on this card.
 
 Reliable delivery (``FabricConfig.arq=True``): senders keep every data
 message in a bounded per-(src, dst) retransmit buffer keyed by the route
@@ -581,7 +585,7 @@ class Fabric:
             p_r, nb_r, rt_r, lv_r, sv_r, axis_steps=axis_steps, total=total,
             faults=faults,
         )
-        self._inflight = ("fused",) + out
+        self._inflight = ("fused",) + self._stage(out)
 
     def _dispatch_programs(
         self, sends, n_live, payloads, nbytes, routes, T: int, total: int,
@@ -631,7 +635,22 @@ class Fabric:
         if self.tx_hook is not None:
             tx = np.asarray(self.tx_hook(tx, tx_valid))
         out = self.router.deliver(tx, tx_valid, total_frames=total)
-        self._inflight = ("frames",) + out
+        self._inflight = ("frames", None) + out
+
+    def _stage(self, out: Tuple[torch.Tensor, ...]) -> Tuple:
+        """``(ready, *host outputs)`` of a fused tick.  On a CUDA device
+        every output is copied into pinned host memory with
+        ``non_blocking=True`` and ``ready`` is an event recorded after the
+        copies, so :meth:`_complete` waits for this tick alone; on the CPU
+        the outputs are host tensors already (``ready`` is None)."""
+        if self.router.device.type != "cuda":
+            return (None,) + tuple(out)
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in out)
+        for h, t in zip(host, out):
+            h.copy_(t, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.router.device))
+        return (ready,) + host
 
     def poll(self) -> bool:
         """Complete the in-flight async tick, reassembling its messages into
@@ -645,8 +664,10 @@ class Fabric:
         """RX readback + reassembly of the in-flight tick (the host half of
         the exchange, deferred by ``exchange_async``).  This is the ONLY
         point where delivered frames are materialized as host bytes."""
-        kind, *out = self._inflight
+        kind, ready, *out = self._inflight
         self._inflight = None
+        if ready is not None:
+            ready.synchronize()  # this tick's staged outputs, nothing later
         if kind == "fused":  # RX split already happened inside the tick
             rx_hdr, rx_pay, rx_cnt, ok, crc_ok, rx_step, rx_att, ctr = out
         else:

@@ -2,9 +2,10 @@
 
 ``phit_unpack`` holds the DES payload kernels (CUDA C++ for ``sm_90a`` in
 ``csrc/phit_unpack.cu``) and ``frame_pack`` the routed fabric's frame
-assembly and RX split (``csrc/frame_pack.cu``), each kernel beside its
-plain PyTorch version; ``ops`` holds the public wrappers
-(``decode_batch_kernel``, ``encode_frames_batch``, ...).  Importing
+assembly and RX split and the streaming plane's fragment assembly
+(``csrc/frame_pack.cu``), each kernel beside its plain PyTorch version;
+``ops`` holds the public wrappers (``decode_batch_kernel``,
+``encode_frames_batch``, ``encode_chunks_batch``, ...).  Importing
 this package builds nothing: a kernel is built on its first launch.
 """
 from .ops import (
@@ -14,12 +15,13 @@ from .ops import (
     decode_gather,
     decode_message_kernel,
     decode_run,
+    encode_chunks_batch,
     encode_frames_batch,
     runs_from_plan,
     wire_to_u32,
     wires_to_u32,
 )
-from .frame_pack import pack_frames_batch, unpack_frames_batch
+from .frame_pack import pack_chunks_batch, pack_frames_batch, unpack_frames_batch
 from .phit_unpack import (
     LAUNCHES,
     reset_launches,

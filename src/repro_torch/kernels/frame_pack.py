@@ -1,7 +1,7 @@
-"""Routed-fabric frame assembly and RX split on the card.
+"""Routed-fabric frame assembly, RX split and stream-fragment assembly on the card.
 
-Two hand-written CUDA kernels (``csrc/frame_pack.cu``), each beside a plain
-PyTorch version with the same signature:
+Three hand-written CUDA kernels (``csrc/frame_pack.cu``), each beside a
+plain PyTorch version with the same signature:
 
 * :func:`pack_frames_batch` — join ``(..., 4)`` header rows (size, level,
   CRC32, route) and ``(..., frame_words)`` payload rows into wire-layout
@@ -10,6 +10,12 @@ PyTorch version with the same signature:
 * :func:`unpack_frames_batch` — split ``(N, 4 + frame_words)`` delivered
   frames into headers ``(N, 4)`` and payloads ``(N, frame_words)``.
   Replaces ``_split_kernel``.
+* :func:`pack_chunks_batch` — one wire row ``[stream_id, step, flags |
+  element words | count]`` per stream fragment from meta ``(B, 3)``,
+  element words ``(B, capW)`` and counts ``(B, 1)``.  Replaces
+  ``_chunk_kernel``; with ``elem_words`` it also zeroes the element words
+  past ``count * elem_words``, the tail mask the reference's
+  ``kernels.ops.encode_chunks_batch`` applies before its kernel.
 
 The structure half of framing (sizes, CRC32, route words, tail masking) is
 ``fabric.frames.frame_parts_batch``; these kernels move the words.
@@ -33,11 +39,14 @@ from . import _build
 from .phit_unpack import _stream
 
 HDR_WORDS = 4
+#: u32 words of stream-fragment meta: (stream_id, step, flags)
+CHUNK_META_WORDS = 3
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {
     "pack_frames_batch": 0,
     "unpack_frames_batch": 0,
+    "pack_chunks_batch": 0,
 }
 
 _SIGNATURES = {
@@ -48,6 +57,10 @@ _SIGNATURES = {
     "hgum_unpack_frames_batch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_void_p,
+    ],
+    "hgum_pack_chunks_batch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ],
 }
 
@@ -129,6 +142,18 @@ def unpack_frames_batch_plain(frames: torch.Tensor) -> Tuple[torch.Tensor, torch
     return frames[:, :HDR_WORDS].contiguous(), frames[:, HDR_WORDS:].contiguous()
 
 
+def pack_chunks_batch_plain(meta: torch.Tensor, tokens: torch.Tensor,
+                            counts: torch.Tensor, elem_words: int = 0) -> torch.Tensor:
+    """``[meta | tokens | counts]`` rows; ``elem_words > 0`` first zeroes
+    the element words at columns ``>= counts * elem_words`` (a u32
+    product, as the reference computes it)."""
+    if elem_words:
+        col = torch.arange(tokens.shape[1], device=tokens.device)
+        nwords = ((counts.long() & 0xFFFFFFFF) * elem_words) & 0xFFFFFFFF
+        tokens = torch.where(col[None, :] < nwords, tokens, 0)
+    return torch.cat([meta, tokens, counts], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -176,3 +201,36 @@ def unpack_frames_batch(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
                 frames.data_ptr(), hdr.data_ptr(), pay.data_ptr(), rows,
                 width - HDR_WORDS, _stream(frames))
     return hdr, pay
+
+
+def pack_chunks_batch(meta: torch.Tensor, tokens: torch.Tensor, counts: torch.Tensor,
+                      elem_words: int = 0) -> torch.Tensor:
+    """Fragment rows ``(B, capW + 4)`` from meta ``(B, 3)``, element words
+    ``(B, capW)`` and element counts ``(B, 1)``: ``[stream_id, step, flags |
+    capW words | count]``, the count after the elements (paper §IV-B).
+
+    With the default ``elem_words=0`` the element words are copied as they
+    are (the reference kernel's contract: pre-masked tokens); with
+    ``elem_words >= 1`` the words past ``count * elem_words`` come out as
+    zeros, the fused tail mask of ``ops.encode_chunks_batch``."""
+    if (meta.dim() != 2 or meta.shape[1] != CHUNK_META_WORDS or tokens.dim() != 2
+            or tuple(counts.shape) != (meta.shape[0], 1)
+            or tokens.shape[0] != meta.shape[0]):
+        raise ValueError(f"meta {tuple(meta.shape)}, tokens {tuple(tokens.shape)} and "
+                         f"counts {tuple(counts.shape)} do not pair up as (B, 3), "
+                         f"(B, capW) and (B, 1)")
+    if not 0 <= elem_words < 2**31:
+        raise ValueError(f"elem_words must be >= 0 (0: no tail mask), got {elem_words}")
+    if _on_cpu(meta, tokens, counts):
+        return pack_chunks_batch_plain(meta, tokens, counts, elem_words)
+    rows, cap_w = tokens.shape
+    width = cap_w + CHUNK_META_WORDS + 1
+    if rows * width > _MAX_WORDS:
+        raise ValueError(f"{rows} fragments of {width} words exceed one launch")
+    meta, tokens, counts = meta.contiguous(), tokens.contiguous(), counts.contiguous()
+    out = torch.empty((rows, width), dtype=torch.int32, device=meta.device)
+    if rows:
+        _launch("pack_chunks_batch", (meta, tokens, counts, elem_words),
+                "hgum_pack_chunks_batch", meta.data_ptr(), tokens.data_ptr(),
+                counts.data_ptr(), out.data_ptr(), rows, cap_w, elem_words, _stream(out))
+    return out

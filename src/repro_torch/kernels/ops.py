@@ -25,7 +25,7 @@ import torch
 
 from ..core.vectorized import BatchedDecodePlan, DecodePlan, stack_wires
 from ..device import DeviceLike, default_device
-from .frame_pack import pack_frames_batch, unpack_frames_batch
+from .frame_pack import pack_chunks_batch, pack_frames_batch, unpack_frames_batch
 from .phit_unpack import unpack_gather, unpack_run
 
 
@@ -194,3 +194,25 @@ def encode_frames_batch(
 def decode_frames_batch(frames_u32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """RX split of delivered frames: (N, width) -> (headers, payloads)."""
     return unpack_frames_batch(frames_u32)
+
+
+def encode_chunks_batch(
+    meta: torch.Tensor,  # (B, 3) int32 lanes — (stream_id, step, flags)
+    tokens: torch.Tensor,  # (B, cap * elem_words) int32 element words
+    counts: torch.Tensor,  # (B,) int32 lanes — true ELEMENT counts
+    elem_words: int = 1,
+) -> torch.Tensor:
+    """Generated stream-fragment SER: B fragments -> B wire rows
+    ``[meta | element words | count]`` (count after the elements, §IV-B).
+
+    The counterpart of ``repro.kernels.ops.encode_chunks_batch``: element
+    words past each fragment's ``count * elem_words`` come out as zeros
+    and the trailing word is the element count.  The reference masks with
+    a ``jnp.where`` and then runs its kernel; here the mask is part of the
+    one ``pack_chunks_batch`` launch.  Returns ``(B, capW + 4)`` int32
+    lanes on the inputs' device."""
+    if elem_words < 1:
+        raise ValueError(f"elem_words must be >= 1, got {elem_words}")
+    if counts.dim() != 1:
+        raise ValueError(f"counts must be (B,), got {tuple(counts.shape)}")
+    return pack_chunks_batch(meta, tokens, counts[:, None], elem_words)

@@ -1,5 +1,6 @@
 """The port on the card: CUDA kernels against their plain versions, and the
-routed fabric and sharded plane on the card against the host.
+routed fabric and the sharded and streaming planes on the card against the
+host.
 
 Every test here needs a CUDA device; on a host without one they skip.  The
 file imports no JAX, so it runs on the card's machine as it is:
@@ -199,3 +200,56 @@ def test_sharded_serve_on_card_equals_host(cuda_device):
     assert got == serve.serve_requests_sharded(params_cpu, cfg, wires, device="cpu", **kw)
     assert got == serve.serve_requests(params_gpu, cfg, wires, device=cuda_device,
                                        max_new=4, pad_to=16, slots=4)
+
+
+# ---------------------------------------------------------------------------
+# stream-fragment kernel (B7 pack_chunks_batch) and the streaming plane
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+@pytest.mark.parametrize("cap", [1, 64])
+@pytest.mark.parametrize("elem_words", [1, 2])
+@pytest.mark.parametrize("rows", [0, 1, 33])
+def test_pack_chunks_kernel_equals_plain(cuda_device, rows, elem_words, cap, masked):
+    g = torch.Generator(device=cuda_device).manual_seed(rows * 7 + cap + elem_words)
+    meta = torch.randint(-2**31, 2**31, (rows, 3), dtype=torch.int32, device=cuda_device,
+                         generator=g)
+    toks = torch.randint(-2**31, 2**31, (rows, cap * elem_words), dtype=torch.int32,
+                         device=cuda_device, generator=g)
+    counts = torch.randint(0, cap + 1, (rows, 1), dtype=torch.int32, device=cuda_device,
+                           generator=g)
+    ew = elem_words if masked else 0
+    before = fp.LAUNCHES["pack_chunks_batch"]
+    got = (ops.encode_chunks_batch(meta, toks, counts[:, 0], elem_words) if masked
+           else fp.pack_chunks_batch(meta, toks, counts))
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["pack_chunks_batch"] == before + (1 if rows else 0)
+    assert got.shape == (rows, cap * elem_words + 4)
+    assert torch.equal(got, fp.pack_chunks_batch_plain(meta, toks, counts, ew))
+    assert torch.equal(got.cpu(), fp.pack_chunks_batch_plain(meta.cpu(), toks.cpu(),
+                                                              counts.cpu(), ew))
+
+
+def test_streaming_serve_on_card_equals_host(cuda_device):
+    """float32 smoke model, TF32 off, logprobs on: the card streams the
+    same wires, tokens and logprobs as the host, through B7."""
+    cfg = smoke_config(get_config("yi-6b"))
+    params_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params_gpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(cuda_device)
+    wires = serve.synthetic_wires(cfg, 5, 3, seed=4)
+    kw = dict(max_new=4, pad_to=16, slots=4, n_shards=3, logprobs=True)
+    out = {}
+    for dev, params in ((cuda_device, params_gpu), ("cpu", params_cpu)):
+        toks, lps = [], []
+        fp.reset_launches()
+        got = serve.serve_requests_streaming(
+            params, cfg, wires, device=dev, on_token=lambda *e, t=toks: t.append(e),
+            on_logprob=lambda m, j, s, t, lp, acc=lps: acc.append((m, j, s, t, lp)), **kw)
+        out[str(dev)] = (got, sorted(toks), sorted(lps), fp.LAUNCHES["pack_chunks_batch"])
+    (gw, gt, glp, glaunch), (hw, ht, hlp, _) = out[str(cuda_device)], out["cpu"]
+    assert glaunch >= 1
+    assert gw == hw == serve.serve_requests(params_cpu, cfg, wires, device="cpu",
+                                            max_new=4, pad_to=16, slots=4)
+    assert gt == ht and [e[:4] for e in glp] == [e[:4] for e in hlp]
+    np.testing.assert_allclose([e[4] for e in glp], [e[4] for e in hlp], atol=1e-5, rtol=1e-5)

@@ -167,8 +167,12 @@ def test_frame_pack_recording_and_cpu_counts():
     with tpack.recording() as made:
         ops.encode_frames_batch(torch.zeros(2, 8, dtype=torch.int32), [4, 8],
                                 [[0, 1, 0], [1, 0, 0]], frame_phits=2)
+        ops.encode_chunks_batch(torch.zeros(2, 3, dtype=torch.int32),
+                                torch.zeros(2, 4, dtype=torch.int32),
+                                torch.ones(2, dtype=torch.int32))
     assert made == [] and tpack.LAUNCHES == {"pack_frames_batch": 0,
-                                             "unpack_frames_batch": 0}
+                                             "unpack_frames_batch": 0,
+                                             "pack_chunks_batch": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -215,8 +215,11 @@ def test_entry_points_default_to_cuda(models):
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is valid here")
     wires = _wires(cfg, np.random.default_rng(4), n_prompts=(1,))
+    from repro_torch.core.stream_plans import encode_fragment_burst
     from repro_torch.fabric import Fabric, Router
     from repro_torch.models import init_params
+    from repro_torch.stream import (ChunkLane, TokenChunk, encode_chunk_burst,
+                                    logprob_stream_plan)
     for call in (lambda: tserve.serve_requests(tparams, cfg, wires),
                  lambda: tserve.serve_request(tparams, cfg, wires[0]),
                  lambda: tserve.decode_request_batch(wires),
@@ -225,7 +228,12 @@ def test_entry_points_default_to_cuda(models):
                  lambda: Router((4,)),
                  lambda: tserve.default_serve_fabric(3),
                  lambda: tserve.serve_requests_sharded(tparams, cfg, wires, n_shards=3),
-                 lambda: tserve.main(["--arch", "yi-6b", "--smoke", "--sharded"])):
+                 lambda: tserve.main(["--arch", "yi-6b", "--smoke", "--sharded"]),
+                 lambda: tserve.serve_requests_streaming(tparams, cfg, wires, n_shards=3),
+                 lambda: encode_chunk_burst([TokenChunk(1, 0, (5,))]),
+                 lambda: encode_fragment_burst(logprob_stream_plan(), [TokenChunk(1, 0, ())]),
+                 lambda: ChunkLane(Fabric(n_ranks=2).mailbox(1), 0),
+                 lambda: tserve.main(["--arch", "yi-6b", "--smoke", "--streaming"])):
         with pytest.raises(NoCudaError, match="device='cpu'"):
             call()
 
@@ -255,15 +263,16 @@ new = {{"repro_torch.fabric.frames", "repro_torch.fabric.router",
         "repro_torch.fabric.mailbox", "repro_torch.fabric.faults",
         "repro_torch.kernels.frame_pack", "repro_torch.analysis.comm",
         "repro_torch.analysis.rules", "repro_torch.obs.counters",
-        "repro_torch.obs.metrics"}}
+        "repro_torch.obs.metrics", "repro_torch.stream", "repro_torch.stream.chunks",
+        "repro_torch.stream.plane", "repro_torch.core.stream_plans"}}
 assert new <= set(mods), new - set(mods)
 """
 
 
 def test_import_isolation():
-    """Every module of the port (the fabric, its frame kernels and the
-    copied analysis and obs modules included) and every import of
-    chip_smoke.py loads without JAX or the JAX package."""
+    """Every module of the port (the fabric, its frame kernels, the stream
+    plane, the copied stream codec, analysis and obs modules included) and
+    every import of chip_smoke.py loads without JAX or the JAX package."""
     code = _ISOLATION.format(src=str(ROOT / "src"), smoke=str(ROOT / "chip_smoke.py"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
