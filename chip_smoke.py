@@ -50,6 +50,23 @@ What it does, in order (any failed check raises and the exit code is 1):
    shapes (2**20 fragments x cap 64, one word each, and 2**19 x cap 32,
    two words each, seeded counts 0..cap; masked, and the first unmasked
    too), with its times, bound and plain and library times.
+10. Device SER: the device-side SER entry points.  Phase 3's 16 request
+   wires and its 16 answers (in their SW->HW layout, the one
+   ``plan_from_wire`` reads; the served wires are HW->SW) are decoded on
+   the card (``plan_from_wire``, ``decode_message_kernel``) and re-encoded
+   with ``core.encode_message``, and every token run of them with
+   ``kernels.ops.encode_run`` (B4); each must give back its wire byte for
+   byte.  So must phase 4's 2**20-record wire.  ``encode_run`` at two
+   256 MiB wires (2**24 rows of 13 bytes at a pitch of 16, so the lane
+   mask bites, and of 8 bytes, so two words per row are zeros) must decode
+   back (B1) to the masked tokens.  A host HW-to-HW framed stream (the
+   records as a List, 500-phit frames of 16-byte phits) with its header
+   words zeroed must come back from ``kernels.ops.write_headers`` (B8)
+   byte for byte, and tables with a repeated and an overlapping word must
+   stamp as the serial stamp does.  Then B4 and B8 against their plain
+   versions, bit for bit, at those calls (recorded) and at large shapes
+   (B8: a 256 MiB wire and 2**20 headers), with their times, bounds and
+   plain and library times.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -63,6 +80,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -71,7 +89,20 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
-from repro_torch.core import Schema, lanes_u32, plan_from_wire, ser_sw_to_hw  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    FrameWriter,
+    Schema,
+    SerFSM,
+    build_rom,
+    encode_message,
+    lanes_u32,
+    msg_to_des_tokens,
+    plan_from_wire,
+    ser_sw_to_hw,
+    strip_for_ser,
+)
+from repro_torch.core import fsm as host_fsm  # noqa: E402
+from repro_torch.data.schemas import request_schema, response_schema  # noqa: E402
 from repro_torch.fabric import Fabric, FabricConfig, FaultPlan  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import frame_pack as fp  # noqa: E402
@@ -101,8 +132,13 @@ KERNELS = {
                             fp.LAUNCHES),
     "pack_chunks_batch": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:118",
                           fp.pack_chunks_batch_plain, fp.pack_chunks_batch, fp.LAUNCHES),
+    "pack_run": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:24",
+                 fp.pack_run_plain, fp.pack_run, fp.LAUNCHES),
+    "stamp_headers": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:68",
+                      fp.stamp_headers_plain, fp.stamp_headers, fp.LAUNCHES),
 }
 FRAME_KERNELS = ("pack_frames_batch", "unpack_frames_batch")
+SER_KERNELS = ("pack_run", "stamp_headers")
 
 # serve load (phase 3)
 N_REQUESTS, N_PROMPTS, PROMPT_LENS = 16, 4, (16, 257)
@@ -115,6 +151,12 @@ N_SHARDS = 3
 N_FRAMES_LARGE, FRAME_WORDS = 1 << 20, 64
 # the fragment kernel's large shapes (phase 9): (fragments, cap, elem_words)
 CHUNK_LARGE = ((1 << 20, 64, 1), (1 << 19, 32, 2))
+# device SER (phase 10): encode_run's 256 MiB wires as (rows, nbytes, stride);
+# the framed stream carries phase 4's records as a List (hw2hw frames only
+# carry List data); B8's large shape: a 256 MiB wire and 2**20 headers
+PACK_LARGE = ((1 << 24, 13, 16), (1 << 24, 8, 16))
+RECORD_LIST_SCHEMA = {"Recs": [["hdr", ["Bytes", 3]], ["recs", ["List", ["Bytes", 13]]]]}
+STAMP_LARGE_WORDS, STAMP_LARGE_HEADERS = 1 << 26, 1 << 20
 
 
 def log(msg: str) -> None:
@@ -149,9 +191,19 @@ def call_bytes(kernel: str, wire: torch.Tensor, *args) -> int:
     """Bytes one call must move.  Unpack kernels: the wire bytes their rows
     cover (read once, at most the whole wire), the offsets for the gather,
     the lanes written.  Frame kernels: every input word read once and
-    every output word written once, i.e. twice the inputs' bytes."""
+    every output word written once, i.e. twice the inputs' bytes.  B4: the
+    token bytes below ``nbytes`` read, the wire written; B8: the wire read
+    and written, the header table read."""
     if kernel in FRAME_KERNELS:
         return 2 * 4 * sum(t.numel() for t in (wire,) + args)
+    if kernel == "pack_run":
+        # the token bytes read (lane-masked bytes are not needed), the wire written
+        stride, nbytes = args
+        return wire.shape[0] * (nbytes + stride)
+    if kernel == "stamp_headers":
+        # the wire read and written once, the header table read once
+        (headers,) = args
+        return 2 * 4 * wire.numel() + 4 * headers.numel()
     if kernel == "pack_chunks_batch":
         # meta and counts read, every row written; element words read only
         # where they are live (the masked form reads no word past the count)
@@ -212,14 +264,19 @@ def measure(kernel: str, calls, reps: int) -> dict:
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
 
 
+def lane_mask_i32(nbytes: int, dev) -> torch.Tensor:
+    """The (nlanes,) int32 masks that zero a token's bytes past ``nbytes``."""
+    nlanes = (nbytes + 3) // 4
+    return torch.tensor([(1 << 8 * (nbytes - 4 * j)) - 1 if nbytes - 4 * j < 4 else -1
+                         for j in range(nlanes)], dtype=torch.int32, device=dev)
+
+
 def strided_and_ms(wire: torch.Tensor, args: tuple, reps: int) -> float:
     """One PyTorch call computing an aligned run: the strided view of the
     rows' words ANDed with the lane mask (the view and mask are inputs)."""
     base, stride, count, nbytes = args
-    nlanes = (nbytes + 3) // 4
-    mask = torch.tensor([(1 << 8 * (nbytes - 4 * j)) - 1 if nbytes - 4 * j < 4 else -1
-                         for j in range(nlanes)], dtype=torch.int32, device=wire.device)
-    view = torch.as_strided(wire, (count, nlanes), (stride // 4, 1), base // 4)
+    mask = lane_mask_i32(nbytes, wire.device)
+    view = torch.as_strided(wire, (count, mask.shape[0]), (stride // 4, 1), base // 4)
     check(torch.equal(torch.bitwise_and(view, mask), pu.unpack_run_aligned(wire, *args)),
           "strided view & mask differs from unpack_run_aligned")
     return time_ms(lambda: torch.bitwise_and(view, mask), reps)
@@ -719,6 +776,212 @@ def phase_chunk_kernel(dev, calls):
     return {name: rows}
 
 
+def framed_stream(schema_json: dict, msg: dict):
+    """The host HW-to-HW SER stream of ``msg`` at the paper's frame size
+    (500 phits of 16 bytes) and the header table its framer wrote: int32
+    rows ``[word, size, list_level]``.  The framer is swapped for one that
+    notes where each header goes (scaffolding of this script)."""
+    writers = []
+
+    class NotingFrameWriter(FrameWriter):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.rows = []
+            writers.append(self)
+
+        def _note(self, size: int, level: int) -> None:
+            self._align_out()  # the header starts on a phit
+            self.rows.append((len(self.out) // 4, size, level))
+
+        def flush(self) -> None:
+            if self.buf:
+                self._note(len(self.buf), self.level)
+            super().flush()
+
+        def end_list(self, level: int) -> None:
+            self.flush()
+            self._note(0, level)
+            super().end_list(level)
+
+    schema = Schema.from_json(schema_json)
+    with mock.patch.object(host_fsm, "FrameWriter", NotingFrameWriter):
+        res = SerFSM(build_rom(schema), "hw2hw").run(
+            strip_for_ser(msg_to_des_tokens(schema, msg)))
+    (writer,) = writers
+    check(res.frames == len(writer.rows), "framer noted a header per frame")
+    return res.wire, np.array(writer.rows, np.int32).reshape(-1, 3)
+
+
+def serial_stamp(wire: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """The reference's serial stamp (``ref.stamp_headers_ref``), with words
+    outside the wire dropped (the port's rule)."""
+    out = wire.copy()
+    for word, size, level in rows:
+        for slot, v in ((int(word), size), (int(word) + 1, level)):
+            if 0 <= slot < out.shape[0]:
+                out[slot] = v
+    return out
+
+
+def token_runs(plan, path: str):
+    """(first row, rows, base byte) of each uniform run of 4-byte tokens
+    of ``path`` (one per token List of the message)."""
+    offs = plan.offsets[path][:plan.counts[path]].astype(np.int64)
+    cut = np.flatnonzero(np.diff(offs) != 4) + 1
+    starts, ends = np.r_[0, cut], np.r_[cut, len(offs)]
+    return [(int(a), int(b - a), int(offs[a])) for a, b in zip(starts, ends) if b > a]
+
+
+def ser_round_trips(dev, wires, answers, rec_plan, rec_lanes, rec_wire):
+    """Phase 10's path: the serve's wires and the record wire through
+    decode_message_kernel and encode_message, and every token run of the
+    serve's wires through encode_run (B4); returns the count of wires."""
+    for schema, tok_path, ws in ((request_schema(), "prompts.elem.tokens.elem", wires),
+                                 (response_schema(), "outputs.elem.tokens.elem", answers)):
+        for w in ws:
+            plan = plan_from_wire(schema, w)
+            lanes = ops.wire_to_u32(w, dev)
+            dec = ops.decode_message_kernel(lanes, plan)
+            check(bytes(encode_message(len(w), plan, dec).cpu().numpy()) == w,
+                  "encode_message did not give back a serve wire")
+            for row, n, base in token_runs(plan, tok_path):
+                run = ops.encode_run(dec[tok_path][row:row + n], 4, 4)
+                check(torch.equal(run, lanes[base // 4:base // 4 + n]),
+                      "encode_run did not give back a token run of a serve wire")
+    dec = ops.decode_message_kernel(rec_lanes, rec_plan)
+    want = torch.from_numpy(np.frombuffer(rec_wire, np.uint8).copy()).to(dev)
+    check(torch.equal(encode_message(len(rec_wire), rec_plan, dec), want),
+          "encode_message did not give back the record wire")
+    return len(wires) + len(answers) + 1
+
+
+def phase_device_ser(dev, wires, base, rec_plan, rec_lanes, rec_wire, recs):
+    """Phase 10: the device-side SER entry points on the card (the serve's
+    wires, the record wire, encode_run at 256 MiB, write_headers on a framed
+    stream), then B4 and B8 == plain at those calls and at large shapes.
+    Returns the path's launches and the kernels' rows."""
+    answers = []
+    for rw in base:  # the served answers, in the SW->HW layout plan_from_wire reads
+        rid, outs = serve.decode_response(rw)
+        answers.append(ser_sw_to_hw(response_schema(),
+                                    {"req_id": rid, "outputs": [{"tokens": o} for o in outs]}))
+    msg = {"hdr": 0xABCDEF, "recs": [int.from_bytes(r.tobytes(), "little") for r in recs]}
+    t0 = time.perf_counter()
+    stream, table = framed_stream(RECORD_LIST_SCHEMA, msg)
+    log(f"[ser] host hw2hw SER of {len(recs)} records: {len(stream)} B, {len(table)} frames "
+        f"in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=dev).manual_seed(17)
+    big = [(torch.randint(-2**31, 2**31, (n, (nb + 3) // 4), dtype=torch.int32, device=dev,
+                          generator=g), stride, nb) for n, nb, stride in PACK_LARGE]
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with fp.recording() as made:
+        n_wires = ser_round_trips(dev, wires, answers, rec_plan, rec_lanes, rec_wire)
+        for toks, stride, nb in big:
+            wire = ops.encode_run(toks, stride, nb)
+            back = ops.decode_run(wire, 0, stride, toks.shape[0], nb)
+            check(torch.equal(back, toks & lane_mask_i32(nb, dev)),
+                  f"encode_run -> decode_run ({nb} bytes at {stride}) != masked tokens")
+            del wire, back
+        host = ops.wire_to_u32(stream, dev)
+        words = torch.from_numpy(table[:, 0].astype(np.int64)).to(dev)
+        zeroed = host.clone()
+        zeroed[torch.cat([words, words + 1])] = 0
+        check(not torch.equal(zeroed, host), "zeroing the header words changed nothing")
+        check(torch.equal(ops.write_headers(zeroed, torch.from_numpy(table).to(dev)), host),
+              "write_headers did not give back the host framed stream")
+        w0, w1 = int(table[0, 0]), int(table[1, 0])
+        for label, extra in (("repeated", [w0, 77, 9]), ("overlapping", [w1 + 1, 55, 66])):
+            rows = np.vstack([table, np.array([extra], np.int32)])
+            got = ops.write_headers(zeroed, torch.from_numpy(rows).to(dev))
+            check(np.array_equal(lanes_u32(got), serial_stamp(lanes_u32(zeroed), rows)),
+                  f"write_headers with a {label} word != the serial stamp")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    for name in SER_KERNELS:
+        check(launches[name] >= 1, f"device SER launched no {name}")
+    log(f"[ser] {n_wires} wires ({len(wires)} requests, {len(answers)} answers, 1 of "
+        f"{len(recs)} records) re-encoded byte for byte; encode_run -> decode_run == masked "
+        f"tokens at {[(n, nb, stride) for n, nb, stride in PACK_LARGE]} (rows, bytes, pitch); "
+        f"framed stream ({len(table)} headers) re-stamped byte for byte, repeated and "
+        f"overlapping words == serial stamp; {dt:.3f} s; launches {launches}")
+
+    calls = {name: [a for k, a in made if k == name] for name in SER_KERNELS}
+    for name in SER_KERNELS:
+        shapes = sorted({tuple(tuple(t.shape) if isinstance(t, torch.Tensor) else t
+                               for t in a) for a in calls[name]})
+        log(f"[kernels] {name}: {len(calls[name])} recorded calls, shapes {shapes[:4]}"
+            + (" ..." if len(shapes) > 4 else ""))
+    big_w = torch.randint(-2**31, 2**31, (STAMP_LARGE_WORDS,), dtype=torch.int32,
+                          device=dev, generator=g)
+    spread = STAMP_LARGE_WORDS // STAMP_LARGE_HEADERS
+    big_h = torch.randint(-2**31, 2**31, (STAMP_LARGE_HEADERS, 3), dtype=torch.int32,
+                          device=dev, generator=g)
+    big_h[:, 0] = (torch.arange(STAMP_LARGE_HEADERS, device=dev) * spread + torch.randint(
+        0, spread - 1, (STAMP_LARGE_HEADERS,), device=dev, generator=g)).int()
+    # (kernel, label, calls, reps, with a library call); the first row of
+    # each kernel is its main-path row: B4 at the serve wires' token runs,
+    # B8 at the framed stream (the repeated and overlapping tables have no
+    # library route: index_put_ needs distinct words)
+    cases = [("pack_run", "main-path shapes (serve runs)", calls["pack_run"][:-len(PACK_LARGE)],
+              50, True)]
+    cases += [("pack_run", f"{a[0].shape[0]} rows x {a[2]} B at {a[1]}", [a], 20, True)
+              for a in calls["pack_run"][-len(PACK_LARGE):]]
+    cases += [("stamp_headers", "main-path shapes (framed stream)", calls["stamp_headers"][:1],
+               200, True),
+              ("stamp_headers", "repeated and overlapping words", calls["stamp_headers"][1:],
+               200, False),
+              ("stamp_headers", f"{STAMP_LARGE_WORDS} words, {STAMP_LARGE_HEADERS} headers",
+               [(big_w, big_h)], 20, True)]
+    rows = {}
+    for name, label, lc, reps, with_library in cases:
+        r = measure(name, lc, reps)
+        r["library_ms"] = library_ser_ms(name, lc, reps) if with_library else None
+        if name not in rows:
+            rows[name] = {"main": r, "large": {"max_abs_err": 0}}
+        big_err = rows[name]["large"]["max_abs_err"]
+        rows[name]["large"]["max_abs_err"] = max(big_err, r["max_abs_err"])
+        lib = f"{r['library_ms']:.4f} ms" if with_library else "none"
+        log(f"[kernels] {name:14s} {label:34s} kernel {r['ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bytes']} B)  plain {r['plain_ms']:.4f} ms  "
+            f"{SER_LIBRARY[name]} {lib}  max_abs_err {r['max_abs_err']}")
+    del big, big_w, big_h, calls, made
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+SER_LIBRARY = {"pack_run": "F.pad(tokens & mask)", "stamp_headers": "clone + index_put_"}
+
+
+def library_ser_ms(name: str, calls, reps: int) -> float:
+    """One PyTorch call each that computes the same function, checked equal
+    to the kernel first: ``F.pad`` of the masked tokens (B4; the mask is an
+    input), or ``clone()`` and ``index_put_`` (B8; only for tables of
+    distinct words, since ``index_put_`` on CUDA does not promise that the
+    last duplicate wins)."""
+    if name == "pack_run":
+        masks = {a[2]: lane_mask_i32(a[2], a[0].device) for a in calls}
+
+        def run_all():
+            return [torch.nn.functional.pad(t & masks[nb], (0, stride // 4 - t.shape[1]))
+                    .reshape(-1) for t, stride, nb in calls]
+    else:
+        idx = []
+        for _, hdr in calls:
+            word = hdr[:, 0].long()
+            slots = torch.cat([word, word + 1])
+            check(slots.unique().numel() == slots.numel(), "index_put_ needs distinct words")
+            idx.append(((slots,), torch.cat([hdr[:, 1], hdr[:, 2]])))
+
+        def run_all():
+            return [w.clone().index_put_(*ix) for (w, _), ix in zip(calls, idx)]
+    check(all(torch.equal(x, KERNELS[name][3](*a)) for x, a in zip(run_all(), calls)),
+          f"{name}: library calls differ")
+    return time_ms(run_all, reps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -755,6 +1018,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows.update(phase_frame_kernels(dev, recorded))
     rows.update(phase_chunk_kernel(dev, chunk_calls))
+    ser_launches, ser_rows = phase_device_ser(dev, wires, base, rec_plan, rec_lanes, rec_wire,
+                                              recs)
+    path_launches.append(ser_launches)
+    rows.update(ser_rows)
 
     records = []
     for name, (source, replaces, _, _, _) in KERNELS.items():

@@ -4,8 +4,7 @@
 ``sw_serdes`` use no framework and are copies of the reference modules of
 the same names.  ``vectorized`` keeps the numpy structure passes and writes
 the payload pass in torch.  ``stream_plans`` is a copy whose burst encoder
-packs on the card (the B7 kernel).  Same public names as ``repro.core``,
-minus the parts not ported yet (``encode_leaf``/``encode_message``).
+packs on the card (the B7 kernel).  Same public names as ``repro.core``.
 """
 from .idl import (
     Array,
@@ -72,6 +71,8 @@ from .vectorized import (
     decode_batch,
     decode_leaf,
     decode_message,
+    encode_leaf,
+    encode_message,
     lanes_to_int,
     lanes_u32,
     plan_from_wire,

@@ -1,4 +1,4 @@
-"""HGum decode on the card: numpy structure pass + torch payload pass.
+"""HGum decode and encode on the card: numpy structure pass + torch payload pass.
 
 The structure pass (``DecodePlan``, ``build_plan``, ``plan_from_wire``,
 ``BatchedDecodePlan``, ``stack_wires``, ``batch_plans``) is numpy and is a
@@ -12,6 +12,11 @@ held to: each kernel is held to its own plain version in that module.  The
 two differ past the end of a wire (this gather clips to the last byte, the
 kernels and their plain versions read zeros), so they agree only on rows
 that lie inside the wire.
+
+The encode half (``encode_leaf``, ``encode_message``) is the reference's
+"software-free device-side encode": one scatter per leaf path writes every
+instance into the wire.  It is plain torch, as the reference's is plain jnp
+(no kernel lies under it), and equals it bit for bit.
 
 Lane carrier: token lanes are little-endian u32 words.  torch's ``uint32``
 has no shifts or comparisons on the CPU, so the port carries every u32 lane
@@ -488,3 +493,71 @@ def lanes_to_int(lanes, nbytes: int) -> np.ndarray:
         out = out + (lanes[:, j].astype(object) << (32 * j))
     mask = (1 << (8 * nbytes)) - 1
     return np.array([int(v) & mask for v in out], dtype=object)
+
+
+# ---------------------------------------------------------------------------
+# Encode (scatter) — device-side SER payload pass
+# ---------------------------------------------------------------------------
+
+
+def _scatter_leaf(buf: torch.Tensor, offsets, lanes: torch.Tensor, nbytes: int,
+                  count) -> None:
+    """Scatter the first ``count`` rows of ``lanes`` into ``buf[:-1]`` at
+    byte ``offsets``; ``buf[-1]`` is a trash byte.
+
+    The reference's ``.at[].set(mode="drop")``, made explicit without a host
+    sync: rows ``>= count`` and bytes outside the wire are sent to the trash
+    byte, which the caller slices off.  A negative index counts from the
+    wire's end, as it does in the reference."""
+    wire_len = buf.shape[0] - 1
+    dev = buf.device
+    cap = lanes.shape[0]
+    nlanes = (nbytes + 3) // 4
+    shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int64, device=dev)
+    b = (lanes_to_i64(lanes)[:, :, None] >> shifts) & 0xFF
+    b = b.reshape(cap, nlanes * 4)[:, :nbytes].to(torch.uint8)
+    offsets = torch.as_tensor(offsets).to(device=dev, dtype=torch.int64)
+    idx = offsets[:, None] + torch.arange(nbytes, device=dev)[None, :]
+    idx = torch.where(idx < 0, idx + wire_len, idx)
+    keep = (idx >= 0) & (idx < wire_len)
+    keep &= (torch.arange(cap, device=dev) < count)[:, None]
+    idx = torch.where(keep, idx, wire_len)
+    buf.scatter_(0, idx.reshape(-1), b.reshape(-1))
+
+
+def encode_leaf(
+    wire_u8: torch.Tensor,
+    offsets,
+    lanes: torch.Tensor,
+    nbytes: int,
+    count,
+) -> torch.Tensor:
+    """Scatter ``count`` instances of a leaf field into a copy of the wire.
+
+    ``offsets`` are ``(cap,)`` byte offsets, ``lanes`` ``(cap,
+    ceil(nbytes/4))`` u32 lanes (int32 carrier) on the wire's device, whose
+    bytes go out little-endian; ``count`` is an int or a 0-d tensor.  Rows
+    ``>= count`` and bytes past the wire are dropped.  Returns a new
+    ``uint8`` tensor, as the functional reference does."""
+    buf = torch.cat([wire_u8, wire_u8.new_zeros(1)])
+    _scatter_leaf(buf, offsets, lanes, nbytes, count)
+    return buf[:-1]
+
+
+def encode_message(
+    wire_len: int, plan: DecodePlan, values: Dict[str, torch.Tensor]
+) -> torch.Tensor:
+    """Software-free device-side encode: scatter all paths into a wire buffer.
+
+    ``values[path]`` are u32 lanes shaped ``(cap, nlanes)``; container paths
+    must be present with their counts as values (they serialize like u32
+    fields).  The wire is made on the values' device (with no values, on
+    ``default_device(None)``, the card) and filled in place."""
+    devs = {v.device for v in values.values()}
+    if len(devs) > 1:
+        raise ValueError(f"values on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop() if devs else default_device(None)
+    buf = torch.zeros(wire_len + 1, dtype=torch.uint8, device=dev)
+    for p, lanes in values.items():
+        _scatter_leaf(buf, plan.offsets[p], lanes, plan.nbytes[p], plan.counts[p])
+    return buf[:-1]

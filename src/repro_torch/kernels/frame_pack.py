@@ -1,8 +1,19 @@
-"""Routed-fabric frame assembly, RX split and stream-fragment assembly on the card.
+"""SER payload run, header stamping, routed-fabric frame assembly, RX split
+and stream-fragment assembly on the card.
 
-Three hand-written CUDA kernels (``csrc/frame_pack.cu``), each beside a
+Five hand-written CUDA kernels (``csrc/frame_pack.cu``), each beside a
 plain PyTorch version with the same signature:
 
+* :func:`pack_run` — ``(N, nlanes)`` token lanes, lane-masked to ``nbytes``
+  and zero-padded to a pitch of ``stride`` bytes (``stride % 4 == 0``),
+  flattened into the wire ``(N * stride / 4,)``.  The SER mirror of
+  ``phit_unpack.unpack_run_aligned``; replaces the Pallas body
+  ``_pack_kernel_aligned`` of ``repro.kernels.frame_pack``.
+* :func:`stamp_headers` — a copy of a ``(W,)`` wire with each ``(H, 3)``
+  header row ``[word, size, list_level]`` written into words ``word`` and
+  ``word + 1``, in order, so the last header wins where two meet; words
+  outside ``[0, W)`` are dropped (the reference's numpy oracle wraps a
+  negative word and raises past the end).  Replaces ``_header_kernel``.
 * :func:`pack_frames_batch` — join ``(..., 4)`` header rows (size, level,
   CRC32, route) and ``(..., frame_words)`` payload rows into wire-layout
   frames ``(..., 4 + frame_words)``.  Replaces the Pallas body
@@ -35,8 +46,9 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from ..core.vectorized import lanes_to_i64, u32_to_lanes
 from . import _build
-from .phit_unpack import _stream
+from .phit_unpack import _lane_mask, _stream
 
 HDR_WORDS = 4
 #: u32 words of stream-fragment meta: (stream_id, step, flags)
@@ -44,12 +56,22 @@ CHUNK_META_WORDS = 3
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {
+    "pack_run": 0,
+    "stamp_headers": 0,
     "pack_frames_batch": 0,
     "unpack_frames_batch": 0,
     "pack_chunks_batch": 0,
 }
 
 _SIGNATURES = {
+    "hgum_pack_run": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ],
+    "hgum_stamp_headers": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+    ],
     "hgum_pack_frames_batch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_void_p,
@@ -116,7 +138,7 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     """Validate the operands; True routes to the plain version."""
     for t in tensors:
         if t.dtype != torch.int32:
-            raise ValueError(f"frames are int32 lanes of u32 words, got {t.dtype}")
+            raise ValueError(f"operands are int32 lanes of u32 words, got {t.dtype}")
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"operands on different devices: {sorted(map(str, devs))}")
@@ -129,9 +151,55 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
+def _check_pack_run(tokens: torch.Tensor, stride: int, nbytes: int) -> Tuple[int, int]:
+    """Raise where the reference ``pack_run`` raises or asserts; returns
+    (rows, lanes)."""
+    if tokens.dim() != 2:
+        raise ValueError(f"tokens must be (N, nlanes), got {tuple(tokens.shape)}")
+    n, nlanes = tokens.shape
+    if stride % 4 != 0:
+        raise ValueError(f"pack_run: stride must be 4-byte aligned, got {stride}")
+    if nbytes < 1 or nlanes != (nbytes + 3) // 4:
+        raise ValueError(f"pack_run: {nlanes} lanes do not hold {nbytes} bytes "
+                         f"(need ceil(nbytes / 4))")
+    if stride < 4 * nlanes:
+        raise ValueError(f"pack_run: stride {stride} is shorter than {nlanes} lanes")
+    return n, nlanes
+
+
+def _check_stamp_headers(wire: torch.Tensor, headers: torch.Tensor) -> None:
+    if wire.dim() != 1 or headers.dim() != 2 or headers.shape[1] != 3:
+        raise ValueError(f"wire {tuple(wire.shape)} and headers {tuple(headers.shape)} "
+                         f"are not (W,) and (H, 3)")
+
+
 # ---------------------------------------------------------------------------
 # plain versions (CPU path, and the reference the kernels are held to)
 # ---------------------------------------------------------------------------
+
+
+def pack_run_plain(tokens: torch.Tensor, stride: int, nbytes: int) -> torch.Tensor:
+    _, nlanes = _check_pack_run(tokens, stride, nbytes)
+    masked = u32_to_lanes(lanes_to_i64(tokens) & _lane_mask(nbytes, nlanes, tokens.device))
+    return torch.nn.functional.pad(masked, (0, stride // 4 - nlanes)).reshape(-1)
+
+
+def stamp_headers_plain(wire: torch.Tensor, headers: torch.Tensor) -> torch.Tensor:
+    """The serial stamp, vectorised: each slot takes the value of the last
+    header that writes it (the highest header index, found with an
+    ``amax`` scatter); slots outside the wire go to a trash word."""
+    _check_stamp_headers(wire, headers)
+    n_words, dev = wire.shape[0], wire.device
+    word = headers[:, 0].long()
+    slots = torch.cat([word, word + 1])
+    slots = torch.where((slots >= 0) & (slots < n_words), slots, n_words)
+    order = torch.arange(headers.shape[0], device=dev).repeat(2)
+    owner = torch.full((n_words + 1,), -1, dtype=torch.int64, device=dev)
+    owner.scatter_reduce_(0, slots, order, "amax")
+    slots = torch.where(owner[slots] == order, slots, n_words)
+    out = torch.cat([wire, wire.new_zeros(1)])
+    out.scatter_(0, slots, torch.cat([headers[:, 1], headers[:, 2]]))
+    return out[:n_words]
 
 
 def pack_frames_batch_plain(headers: torch.Tensor, payloads: torch.Tensor) -> torch.Tensor:
@@ -157,6 +225,46 @@ def pack_chunks_batch_plain(meta: torch.Tensor, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+
+
+def pack_run(tokens: torch.Tensor, stride: int, nbytes: int) -> torch.Tensor:
+    """The wire ``(N * stride / 4,)`` of ``N`` tokens at a pitch of
+    ``stride`` bytes from byte 0: row ``r``, word ``c`` holds ``tokens[r, c]``
+    with the bytes past ``nbytes`` zeroed for ``c < nlanes``, and 0 after."""
+    stride, nbytes = int(stride), int(nbytes)
+    n, nlanes = _check_pack_run(tokens, stride, nbytes)
+    if _on_cpu(tokens):
+        return pack_run_plain(tokens, stride, nbytes)
+    stride_w = stride // 4
+    if n * stride_w > _MAX_WORDS:
+        raise ValueError(f"{n} tokens at a pitch of {stride} bytes exceed one launch")
+    tokens = tokens.contiguous()
+    out = torch.empty(n * stride_w, dtype=torch.int32, device=tokens.device)
+    if n:
+        _launch("pack_run", (tokens, stride, nbytes), "hgum_pack_run", tokens.data_ptr(),
+                out.data_ptr(), n, nlanes, stride_w, nbytes, _stream(out))
+    return out
+
+
+def stamp_headers(wire: torch.Tensor, headers: torch.Tensor) -> torch.Tensor:
+    """A copy of the ``(W,)`` wire with ``size`` at word ``word`` and
+    ``list_level`` at ``word + 1`` for each header row ``[word, size,
+    list_level]`` of ``(H, 3)``, in order (the last header wins where two
+    meet); words outside the wire are dropped."""
+    _check_stamp_headers(wire, headers)
+    if _on_cpu(wire, headers):
+        return stamp_headers_plain(wire, headers)
+    n_words, n_headers = wire.shape[0], headers.shape[0]
+    if max(n_words, 2 * n_headers) > _MAX_WORDS or n_headers >= 2**31:
+        raise ValueError(f"{n_words} words and {n_headers} headers exceed one launch")
+    wire, headers = wire.contiguous(), headers.contiguous()
+    out = torch.empty_like(wire)
+    if n_words:
+        owner = torch.empty(n_words, dtype=torch.int32, device=wire.device)
+        _launch("stamp_headers", (wire, headers), "hgum_stamp_headers", wire.data_ptr(),
+                headers.data_ptr(), owner.data_ptr(), out.data_ptr(), n_words, n_headers,
+                _stream(out))
+    return out
 
 
 def pack_frames_batch(headers: torch.Tensor, payloads: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,11 @@ the gather kernel otherwise (ragged containers).  It is the counterpart of
 ``repro.kernels.ops.decode_batch_kernel``, and its output equals
 ``core.vectorized.decode_batch`` on every row that lies inside its wire.
 
+``encode_run`` (one ``pack_run`` launch) and ``write_headers`` (one
+``stamp_headers`` launch) are the device-side SER entry points of the
+reference's ``kernels.ops``: a uniform run of tokens into the wire, and the
+HW-to-HW frame headers into a framed stream.
+
 ``encode_frames_batch`` / ``decode_frames_batch`` are the routed fabric's
 batched SER and RX split (counterparts of the reference functions of the
 same names): the frame structure pass of ``fabric.frames`` plus one
@@ -25,7 +30,13 @@ import torch
 
 from ..core.vectorized import BatchedDecodePlan, DecodePlan, stack_wires
 from ..device import DeviceLike, default_device
-from .frame_pack import pack_chunks_batch, pack_frames_batch, unpack_frames_batch
+from .frame_pack import (
+    pack_chunks_batch,
+    pack_frames_batch,
+    pack_run,
+    stamp_headers,
+    unpack_frames_batch,
+)
 from .phit_unpack import unpack_gather, unpack_run
 
 
@@ -47,6 +58,19 @@ def decode_gather(wire_u32: torch.Tensor, offsets, nbytes: int) -> torch.Tensor:
     """Gather rows at byte ``offsets`` (numpy or tensor; int64 on the card)."""
     offs = torch.as_tensor(offsets, dtype=torch.int64, device=wire_u32.device)
     return unpack_gather(wire_u32, offs.contiguous(), nbytes)
+
+
+def encode_run(tokens: torch.Tensor, stride: int, nbytes: int) -> torch.Tensor:
+    """``(N, nlanes)`` token lanes -> the u32 wire of N tokens at a pitch of
+    ``stride`` bytes (``stride % 4 == 0``), lane-masked to ``nbytes``."""
+    return pack_run(tokens, stride, nbytes)
+
+
+def write_headers(wire_u32: torch.Tensor, headers: torch.Tensor) -> torch.Tensor:
+    """Stamp ``(H, 3)`` int32 rows ``[word, size, list_level]`` into a copy
+    of a framed u32 stream (last header wins; words outside the wire are
+    dropped)."""
+    return stamp_headers(wire_u32, headers)
 
 
 # ---------------------------------------------------------------------------

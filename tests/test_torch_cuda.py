@@ -253,3 +253,102 @@ def test_streaming_serve_on_card_equals_host(cuda_device):
                                             max_new=4, pad_to=16, slots=4)
     assert gt == ht and [e[:4] for e in glp] == [e[:4] for e in hlp]
     np.testing.assert_allclose([e[4] for e in glp], [e[4] for e in hlp], atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# SER payload run (B4 pack_run), header stamp (B8 stamp_headers) and the
+# device-side encode
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [0, 1, 517])
+@pytest.mark.parametrize("nbytes,stride", [(1, 4), (4, 8), (8, 16), (13, 16), (13, 32),
+                                           (16, 16)])
+def test_pack_run_kernel_equals_plain(cuda_device, n, nbytes, stride):
+    g = torch.Generator(device=cuda_device).manual_seed(n + nbytes + stride)
+    toks = torch.randint(-2**31, 2**31, (n, (nbytes + 3) // 4), dtype=torch.int32,
+                         device=cuda_device, generator=g)
+    before = fp.LAUNCHES["pack_run"]
+    got = ops.encode_run(toks, stride, nbytes)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["pack_run"] == before + (1 if n else 0)
+    assert got.shape == (n * stride // 4,)
+    assert torch.equal(got, fp.pack_run_plain(toks, stride, nbytes))
+    assert torch.equal(got.cpu(), fp.pack_run_plain(toks.cpu(), stride, nbytes))
+    # the SER mirror of the aligned DES run
+    assert torch.equal(ops.decode_run(got, 0, stride, n, nbytes),
+                       pu.unpack_run_aligned_plain(got, 0, stride, n, nbytes))
+
+
+def _headers(device, rows):
+    return torch.tensor(rows, dtype=torch.int32, device=device).reshape(-1, 3)
+
+
+@pytest.mark.parametrize("rows", [
+    [[0, 100, 1], [128, 0, 2], [512, 64, 1], [1000, 4, 3]],
+    [[4, 7, 1], [5, 9, 2]],  # overlapping: word 5 is the first's level slot
+    [[4, 7, 1], [4, 9, 2], [4, 11, 3]],  # repeated word
+    [],  # H = 0: a copy
+    [[1599, 5, 6], [-1, 7, 8], [4000, 1, 1]],  # slots past either end dropped
+], ids=["table", "overlap", "repeat", "empty", "out-of-range"])
+def test_stamp_headers_kernel_equals_plain(cuda_device, rows):
+    wire = _wire(cuda_device)
+    hdr = _headers(cuda_device, rows)
+    before = fp.LAUNCHES["stamp_headers"]
+    got = ops.write_headers(wire, hdr)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["stamp_headers"] == before + 1
+    assert torch.equal(got, fp.stamp_headers_plain(wire, hdr))
+    want = wire.cpu().numpy().copy()
+    for word, size, level in rows:  # the serial stamp, slots outside dropped
+        for slot, v in ((word, size), (word + 1, level)):
+            if 0 <= slot < want.shape[0]:
+                want[slot] = v
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_stamp_headers_kernel_many_conflicts(cuda_device):
+    """2**16 headers on 2**12 words: every slot is written many times, so
+    the owner pass decides it."""
+    wire = _wire(cuda_device, words=1 << 12)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    hdr = torch.randint(-2, (1 << 12) + 2, (1 << 16, 3), dtype=torch.int32,
+                        device=cuda_device, generator=g)
+    got = fp.stamp_headers(wire, hdr)
+    assert torch.equal(got, fp.stamp_headers_plain(wire, hdr))
+    assert torch.equal(got.cpu(), fp.stamp_headers_plain(wire.cpu(), hdr.cpu()))
+
+
+def test_empty_wire_stamps_nothing(cuda_device):
+    empty = torch.empty(0, dtype=torch.int32, device=cuda_device)
+    before = fp.LAUNCHES["stamp_headers"]
+    assert fp.stamp_headers(empty, _headers(cuda_device, [[0, 1, 1]])).shape == (0,)
+    assert fp.LAUNCHES["stamp_headers"] == before
+
+
+def test_ser_wrappers_never_take_the_plain_version(cuda_device, monkeypatch):
+    """A CUDA tensor launches the kernel: the plain versions are not called."""
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(fp, "pack_run_plain", refuse)
+    monkeypatch.setattr(fp, "stamp_headers_plain", refuse)
+    toks = torch.ones(3, 2, dtype=torch.int32, device=cuda_device)
+    assert ops.encode_run(toks, 8, 8).is_cuda
+    assert ops.write_headers(_wire(cuda_device), _headers(cuda_device, [[0, 1, 1]])).is_cuda
+
+
+def test_encode_message_on_card_equals_host(cuda_device):
+    """decode on the card (B1/B3) then encode_message gives back the wire,
+    and the card's wire equals the host's."""
+    from repro_torch.core import decode_message, encode_message, plan_from_wire, wire_to_u8
+
+    cfg = smoke_config(get_config("yi-6b"))
+    wires = serve.synthetic_wires(cfg, 4, 3, seed=5, min_len=0, max_len=40)
+    for w in wires:
+        plan = plan_from_wire(request_schema(), w)
+        dec = ops.decode_message_kernel(ops.wire_to_u32(w, cuda_device), plan)
+        got = encode_message(len(w), plan, dec)
+        assert got.is_cuda and bytes(got.cpu().numpy()) == w
+        host = encode_message(len(w), plan, decode_message(wire_to_u8(w, "cpu"), plan))
+        assert torch.equal(got.cpu(), host)

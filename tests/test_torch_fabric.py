@@ -170,7 +170,12 @@ def test_frame_pack_recording_and_cpu_counts():
         ops.encode_chunks_batch(torch.zeros(2, 3, dtype=torch.int32),
                                 torch.zeros(2, 4, dtype=torch.int32),
                                 torch.ones(2, dtype=torch.int32))
-    assert made == [] and tpack.LAUNCHES == {"pack_frames_batch": 0,
+        ops.encode_run(torch.ones(2, 2, dtype=torch.int32), 8, 7)
+        ops.write_headers(torch.zeros(8, dtype=torch.int32),
+                          torch.tensor([[2, 5, 1]], dtype=torch.int32))
+    assert made == [] and tpack.LAUNCHES == {"pack_run": 0,
+                                             "stamp_headers": 0,
+                                             "pack_frames_batch": 0,
                                              "unpack_frames_batch": 0,
                                              "pack_chunks_batch": 0}
 
