@@ -10,9 +10,12 @@ What it does, in order (any failed check raises and the exit code is 1):
 2. Kernels: each DES kernel (``unpack_run`` aligned and general,
    ``unpack_gather``) against its plain PyTorch version, bit for bit, at the
    calls the main paths make (recorded by the wrappers during one serve DES
-   and one record decode) and at one large shape (a 256 MiB wire).
-   Prints each kernel's time (CUDA events), its byte bound at the card's
-   memory rate and its plain version's time.
+   and one record decode) and at one large shape (a 256 MiB wire; B1 also
+   at a strided one, 2**22 rows of 8 bytes at a pitch of 64).  Prints each
+   kernel's time (CUDA events), its byte bound at the card's memory rate
+   and its plain version's time, and what one wrapper call costs on the
+   host, part by part (checks, allocation, stream handle, entry point,
+   ctypes call; host clock, means over many calls).
 3. Serve: ``repro_torch.launch.serve.serve_requests`` on yi-6b at full width
    and depth (bfloat16, seeded random weights): 16 request wires x 4
    prompts of 16-256 tokens, ``pad_to=256``, ``max_new=32``, 16 slots.  The
@@ -25,26 +28,36 @@ What it does, in order (any failed check raises and the exit code is 1):
    launch, and the lanes must equal the record bytes.
 5. Fabric: the same seeded sends (ARQ on, under a seeded FaultPlan)
    through both tick engines on the card and through the host fabric must
-   deliver the same bytes, arrival steps and counters.
+   deliver the same bytes, arrival steps and counters; and the
+   single-stream framer ``fabric.frames.frame_stream`` (structure pass,
+   then the B5 join ``pack_frames_batch``) must frame the first sends on
+   the card as on the host.
 6. Sharded: ``serve_requests_sharded`` on the same yi-6b parameters and
    the same 16 wires, 3 shards, ARQ on, once with the default placement
    and once round-robin over the shards: every response must equal the
-   batched plane's from phase 3, and the frame kernels' launch counters
-   must rise.  Prints req/s, tok/s, fabric ticks, router scan steps per
-   tick and host ms per tick.
+   batched plane's from phase 3, ``frame_batch`` must launch exactly once
+   per dispatched fabric tick and ``unpack_frames_batch`` must launch.
+   Prints req/s, tok/s, fabric ticks, router scan steps per tick and host
+   ms per tick.
 7. Streaming: ``serve_requests_streaming`` on the same parameters and
    wires, 3 shards, default placement (by sequence weight), ARQ on, once
    with ``overlap=True, logprobs=True`` and once with ``overlap=False,
    logprobs=False``: the final wires must equal the batched plane's, every
    stream's ``on_token`` tokens in step order that sequence's output, the
    logprob stream's tokens the token stream's, and every logprob must be
-   finite and <= 0; the B7 launch counter must rise.  Prints req/s, tok/s,
+   finite and <= 0; the B7 launch counter must rise, and ``frame_batch``
+   must launch once per dispatched fabric tick.  Prints req/s, tok/s,
    TTFT per stream (p50, p95, max), fabric ticks, host ms per tick, the
    ``poll()`` wait per tick, B7 launches and requests per shard.
-8. Frame kernels: ``pack_frames_batch`` and ``unpack_frames_batch``
-   against their plain versions, bit for bit, at the calls phase 6 made
-   (recorded by the wrappers) and at one large shape (2**20 frames of 68
-   words, 272 MiB), with their times, bounds and plain and library times.
+8. Frame kernels: ``frame_batch``, ``pack_frames_batch`` and
+   ``unpack_frames_batch`` against their plain versions, bit for bit, at
+   the calls phases 5-7 made (recorded by the wrappers: B5's join at
+   phase 5's ``frame_stream`` calls, the only path that launches it;
+   ``frame_batch`` and B6 at phase 6's, ``frame_batch`` also at phase
+   7's) and at one large shape (2**20 frames of 68 words, 272 MiB), with
+   their times, bounds and plain and library times.  ``frame_batch``'s
+   plain route is many calls (the structure pass, about a thousand eager
+   ops, then ``torch.cat``); no one PyTorch call computes it.
 9. Fragment kernel: ``pack_chunks_batch`` (B7) against its plain version,
    bit for bit, at the calls phase 7 made (recorded) and at two large
    shapes (2**20 fragments x cap 64, one word each, and 2**19 x cap 32,
@@ -103,7 +116,7 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core import fsm as host_fsm  # noqa: E402
 from repro_torch.data.schemas import request_schema, response_schema  # noqa: E402
-from repro_torch.fabric import Fabric, FabricConfig, FaultPlan  # noqa: E402
+from repro_torch.fabric import Fabric, FabricConfig, FaultPlan, frame_stream  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import frame_pack as fp  # noqa: E402
 from repro_torch.kernels import phit_unpack as pu  # noqa: E402
@@ -127,6 +140,8 @@ KERNELS = {
                       pu.unpack_gather_plain, pu.unpack_gather, pu.LAUNCHES),
     "pack_frames_batch": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:82",
                           fp.pack_frames_batch_plain, fp.pack_frames_batch, fp.LAUNCHES),
+    "frame_batch": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:82",
+                    fp.frame_batch_plain, fp.frame_batch, fp.LAUNCHES),
     "unpack_frames_batch": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:168",
                             fp.unpack_frames_batch_plain, fp.unpack_frames_batch,
                             fp.LAUNCHES),
@@ -137,7 +152,7 @@ KERNELS = {
     "stamp_headers": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:68",
                       fp.stamp_headers_plain, fp.stamp_headers, fp.LAUNCHES),
 }
-FRAME_KERNELS = ("pack_frames_batch", "unpack_frames_batch")
+FRAME_KERNELS = ("pack_frames_batch", "frame_batch", "unpack_frames_batch")
 SER_KERNELS = ("pack_run", "stamp_headers")
 
 # serve load (phase 3)
@@ -146,9 +161,15 @@ PAD_TO, MAX_NEW, SLOTS, SEED = 256, 32, 16, 0
 # record path (phase 4): hdr Bytes 3 + Array<Bytes 13>
 RECORD_SCHEMA = {"Recs": [["hdr", ["Bytes", 3]], ["recs", ["Array", ["Bytes", 13]]]]}
 N_RECORDS = 1 << 20
-# sharded plane (phase 6) and the frame kernels' large shape (phase 8)
+# B1's strided large shape (phase 2): (rows, nbytes, pitch) in the 256 MiB wire
+STRIDED_LARGE = (1 << 22, 8, 64)
+# wrapper-cost breakdown (phase 2): host calls per part
+COST_REPS = 2000
+# sharded plane (phase 6) and the frame kernels' large shape (phase 8):
+# frame_batch frames 2**16 streams of 15 frames' payload (+ terminator)
 N_SHARDS = 3
 N_FRAMES_LARGE, FRAME_WORDS = 1 << 20, 64
+FRAME_STREAMS_LARGE = 1 << 16
 # the fragment kernel's large shapes (phase 9): (fragments, cap, elem_words)
 CHUNK_LARGE = ((1 << 20, 64, 1), (1 << 19, 32, 2))
 # device SER (phase 10): encode_run's 256 MiB wires as (rows, nbytes, stride);
@@ -191,9 +212,18 @@ def call_bytes(kernel: str, wire: torch.Tensor, *args) -> int:
     """Bytes one call must move.  Unpack kernels: the wire bytes their rows
     cover (read once, at most the whole wire), the offsets for the gather,
     the lanes written.  Frame kernels: every input word read once and
-    every output word written once, i.e. twice the inputs' bytes.  B4: the
+    every output word written once, i.e. twice the inputs' bytes;
+    ``frame_batch``: the live payload words (below each stream's byte
+    count) and the per-stream counts, routes and levels read, the frames
+    written.  B4: the
     token bytes below ``nbytes`` read, the wire written; B8: the wire read
     and written, the header table read."""
+    if kernel == "frame_batch":
+        nb, rt, lv, phits, _ = args
+        B, row_words = wire.shape
+        live = int(((nb + 3) // 4).clamp(0, row_words).sum())
+        frames = B * (-(-row_words // (4 * phits)) + 1) * (4 + 4 * phits)
+        return 4 * live + 8 * (nb.numel() + rt.numel() + lv.numel()) + 4 * frames
     if kernel in FRAME_KERNELS:
         return 2 * 4 * sum(t.numel() for t in (wire,) + args)
     if kernel == "pack_run":
@@ -340,7 +370,8 @@ def log_rows(name: str, rows: dict, large_label: str, library: str) -> None:
 
 
 def phase_kernels(dev, main):
-    """Phase 2: each DES kernel == plain at the main paths' calls and large."""
+    """Phase 2: each DES kernel == plain at the main paths' calls and large
+    (B1 at a dense and at a strided large shape)."""
     rows = {}
     g = torch.Generator(device=dev).manual_seed(7)
     big = torch.randint(-2**31, 2**31, (1 << 26,), dtype=torch.int32, device=dev, generator=g)
@@ -351,6 +382,8 @@ def phase_kernels(dev, main):
         "unpack_gather": [(big, torch.sort(torch.randint(
             0, n_big - 4, (1 << 24,), device=dev, generator=g)).values, 4)],
     }
+    n_rows, nb, pitch = STRIDED_LARGE
+    strided = [(big, 0, pitch, n_rows, nb)]
     for name in pu.LAUNCHES:
         m = measure(name, main[name], reps=200)
         lg = measure(name, large[name], reps=20)
@@ -360,9 +393,71 @@ def phase_kernels(dev, main):
             lg["library_ms"] = strided_and_ms(big, large[name][0][1:], 20)
         rows[name] = {"main": m, "large": lg}
         log_rows(name, rows[name], "large (256 MiB wire)", "strided view & mask")
-    del big, large
+        if name == "unpack_run_aligned":
+            st = measure(name, strided, reps=20)
+            st["library_ms"] = strided_and_ms(big, strided[0][1:], 20)
+            lg["max_abs_err"] = max(lg["max_abs_err"], st["max_abs_err"])
+            log(f"[kernels] {name:20s} {f'{n_rows} rows x {nb} B at {pitch}':22s} kernel "
+                f"{st['ms']:.4f} ms  bound {st['bound_ms']:.4f} ms ({st['bytes']} B)  plain "
+                f"{st['plain_ms']:.4f} ms  strided view & mask {st['library_ms']:.4f} ms  "
+                f"max_abs_err {st['max_abs_err']}")
+    wrapper_costs(main["unpack_run_aligned"][0])
+    del big, large, strided
     torch.cuda.empty_cache()
     return rows
+
+
+def host_us(fn, reps: int = COST_REPS) -> float:
+    """Mean host microseconds of ``fn()`` over ``reps`` calls (the work
+    they queue on the card is drained after the clock stops)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return dt / reps / 1e3
+
+
+def wrapper_costs(call) -> None:
+    """One ``unpack_run_aligned`` wrapper call at a main-path call (the
+    serve's req_id run), taken apart on the host clock: the checks, the
+    output allocation, the stream handle (the raw handle the wrappers read
+    now, and the ``torch.cuda.Stream`` object they built before), the
+    entry point's lookup, the ctypes call that launches, the whole wrapper,
+    and the strided view & mask that computes the same function."""
+    wire, base, stride, count, nbytes = call
+    nlanes = (nbytes + 3) // 4
+    out = torch.empty((count, nlanes), dtype=torch.int32, device=wire.device)
+    lib = pu._library()
+    fn = lib.hgum_unpack_run_aligned
+    args = (wire.data_ptr(), wire.shape[0], out.data_ptr(), base // 4, stride // 4, count,
+            nlanes, nbytes, pu._stream(wire))
+    mask = lane_mask_i32(nbytes, wire.device)
+    view = torch.as_strided(wire, (count, nlanes), (stride // 4, 1), base // 4)
+
+    def checks():
+        pu._check_aligned(base, stride)
+        pu._on_cpu(wire, nbytes, count)
+
+    parts = {
+        "checks": checks,
+        "torch.empty": lambda: torch.empty((count, nlanes), dtype=torch.int32,
+                                           device=wire.device),
+        "stream (raw handle)": lambda: pu._stream(wire),
+        "stream (torch.cuda.current_stream().cuda_stream)":
+            lambda: torch.cuda.current_stream(wire.device).cuda_stream,
+        "entry point (getattr on the typed CDLL)": lambda: getattr(pu._library(),
+                                                                   "hgum_unpack_run_aligned"),
+        "ctypes call (launch)": lambda: fn(*args),
+        "whole wrapper": lambda: pu.unpack_run_aligned(wire, base, stride, count, nbytes),
+        "library: strided view & mask": lambda: torch.bitwise_and(view, mask),
+    }
+    costs = {k: host_us(f) for k, f in parts.items()}
+    log(f"[cost] unpack_run_aligned wrapper at the serve's call ({count} rows x {nbytes} B "
+        f"at {stride}), host us per call over {COST_REPS} calls: "
+        + "; ".join(f"{k} {v:.3f}" for k, v in costs.items()))
 
 
 def library_frame_ms(name: str, calls, reps: int) -> float:
@@ -379,37 +474,65 @@ def library_frame_ms(name: str, calls, reps: int) -> float:
     return time_ms(fn, reps)
 
 
-def phase_frame_kernels(dev, recorded):
-    """Phase 8: each frame kernel == plain at the calls the sharded serve
-    made (recorded) and at 2**20 frames of 4 + 64 words."""
+def phase_frame_kernels(dev, recorded, stream_framing, joins):
+    """Phase 8: each frame kernel == plain at the calls phases 5-7 made
+    (recorded) and at 2**20 frames of 4 + 64 words."""
     calls = {name: [] for name in FRAME_KERNELS}
     for name, args in recorded:
         calls[name].append(args)
+    calls["pack_frames_batch"] = joins
+    where = {"pack_frames_batch": "phase 5's frame_stream"}
     g = torch.Generator(device=dev).manual_seed(11)
     n, f = N_FRAMES_LARGE, 16
+    streams, row_words = FRAME_STREAMS_LARGE, (N_FRAMES_LARGE // FRAME_STREAMS_LARGE - 1) * 64
     large = {
         "pack_frames_batch": [(
             torch.randint(-2**31, 2**31, (n // f, f, 4), dtype=torch.int32, device=dev,
                           generator=g),
             torch.randint(-2**31, 2**31, (n // f, f, FRAME_WORDS), dtype=torch.int32,
                           device=dev, generator=g))],
+        # full streams but for a seeded part of the last frame
+        "frame_batch": [(
+            torch.randint(-2**31, 2**31, (streams, row_words), dtype=torch.int32,
+                          device=dev, generator=g),
+            4 * row_words - torch.randint(0, 4 * FRAME_WORDS, (streams,), device=dev,
+                                          generator=g),
+            torch.randint(0, 2**16, (streams, 3), device=dev, generator=g),
+            torch.randint(0, 256, (streams,), device=dev, generator=g),
+            FRAME_WORDS // 4, True)],
         "unpack_frames_batch": [(torch.randint(
             -2**31, 2**31, (n, 4 + FRAME_WORDS), dtype=torch.int32, device=dev,
             generator=g),)],
     }
     rows = {}
     for name in FRAME_KERNELS:
-        check(len(calls[name]) >= 1, f"{name}: no call recorded on the sharded path")
+        path = where.get(name, "the sharded path")
+        check(len(calls[name]) >= 1, f"{name}: no call recorded on {path}")
         m = measure(name, calls[name], reps=200)
         lg = measure(name, large[name], reps=20)
-        m["library_ms"] = library_frame_ms(name, calls[name], 200)
-        lg["library_ms"] = library_frame_ms(name, large[name], 20)
+        if name == "frame_batch":
+            m["library_ms"] = lg["library_ms"] = None
+        else:
+            m["library_ms"] = library_frame_ms(name, calls[name], 200)
+            lg["library_ms"] = library_frame_ms(name, large[name], 20)
         m["calls"] = len(calls[name])
         rows[name] = {"main": m, "large": lg}
-        shapes = sorted({tuple(tuple(t.shape) for t in a) for a in calls[name]})
-        log(f"[kernels] {name}: {len(calls[name])} recorded calls, shapes {shapes}")
+        shapes = sorted({tuple(tuple(t.shape) for t in a if isinstance(t, torch.Tensor))
+                         for a in calls[name]})
+        log(f"[kernels] {name}: {len(calls[name])} calls of {path}, shapes {shapes}")
         log_rows(name, rows[name], "large (2**20 frames)",
-                 "torch.cat" if name == "pack_frames_batch" else "slices .contiguous()")
+                 {"pack_frames_batch": "torch.cat",
+                  "unpack_frames_batch": "slices .contiguous()"}.get(name, ""))
+    # frame_batch at the streaming serves' calls
+    check(len(stream_framing) >= 1, "frame_batch: no streaming calls recorded")
+    r = measure("frame_batch", stream_framing, 20)
+    rows["frame_batch"]["large"]["max_abs_err"] = max(
+        rows["frame_batch"]["large"]["max_abs_err"], r["max_abs_err"])
+    log(f"[kernels] {'frame_batch':20s} {f'{len(stream_framing)} streaming calls':22s} kernel "
+        f"{r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bytes']} B)  plain "
+        f"{r['plain_ms']:.4f} ms  max_abs_err {r['max_abs_err']}")
+    log("[kernels] frame_batch's plain route is the structure pass (its CRC a loop over the "
+        "words of a frame, about a thousand eager ops a call) and torch.cat: many calls")
     del large
     torch.cuda.empty_cache()
     return rows
@@ -547,7 +670,9 @@ def fabric_run(fab, sends, idle: int):
 
 def phase_fabric(dev):
     """Phase 5: seeded sends, ARQ under a seeded FaultPlan, through both
-    tick engines on the card and the fused engine on the host."""
+    tick engines on the card and the fused engine on the host; and the
+    single-stream framer on the card and on the host.  Returns the card's
+    launches (framer and fused engine) and the framer's recorded calls."""
     rng = np.random.default_rng(SEED)
     sends = [(int(rng.integers(8)), int(rng.integers(8)),
               rng.integers(0, 256, int(rng.integers(1, 4000)), dtype=np.uint8).tobytes(),
@@ -555,6 +680,17 @@ def phase_fabric(dev):
     plan = dict(seed=5, drop=0.03, corrupt=0.03, duplicate=0.03)
     out = {}
     reset_launches()
+    with fp.recording() as made:
+        for i, (src, dst, wire, lvl) in enumerate(sends[:8]):
+            lanes = ops.wire_to_u32(wire, dev)
+            kw = dict(list_level=lvl, frame_phits=16, route=(src, dst, 65530 + i),
+                      adaptive=bool(i % 2))
+            f_card, n_card = frame_stream(lanes, len(wire), **kw)
+            f_host, n_host = frame_stream(lanes.cpu(), len(wire), **kw)
+            check(torch.equal(f_card.cpu(), f_host) and int(n_card) == int(n_host),
+                  "frame_stream: card and host frames differ")
+    check(fp.LAUNCHES["pack_frames_batch"] == 8, "frame_stream did not launch B5 once a call")
+    log("[fabric] frame_stream on the card == on the host for 8 sends (B5 join, 8 launches)")
     for label, fused, where in (("fused", True, dev), ("programs", False, dev),
                                 ("host fused", True, "cpu")):
         fab = Fabric(n_ranks=8, config=FabricConfig(arq=True, fused=fused), device=where)
@@ -566,6 +702,8 @@ def phase_fabric(dev):
             f"ticks, {fab.router.scan_steps} scan steps, {dt * 1e3 / fab.ticks:.3f} ms/tick")
         if where == dev and fused:
             launches = read_launches()
+            check(launches["frame_batch"] == fab.exchanges,
+                  "fused fabric: frame_batch launches != dispatched ticks")
     check(len(out["fused"][0]) == len(sends) and all(d[3] for d in out["fused"][0]),
           "fabric: ARQ did not deliver every message intact")
     for label in ("programs", "host fused"):
@@ -573,7 +711,7 @@ def phase_fabric(dev):
         check(np.array_equal(out[label][1], out["fused"][1]), f"fabric: {label} counters differ")
     log("[fabric] fused == three-program on the card == fused on the host: deliveries, "
         "arrival steps, attribution and counters")
-    return launches
+    return launches, [a for k, a in made if k == "pack_frames_batch"]
 
 
 def sharded_run(dev, params, cfg, wires, base, placement, label: str):
@@ -603,8 +741,11 @@ def sharded_run(dev, params, cfg, wires, base, placement, label: str):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
-    for name in FRAME_KERNELS:
-        check(launches[name] >= 1, f"sharded serve launched no {name}")
+    check(launches["unpack_frames_batch"] >= 1, "sharded serve launched no unpack_frames_batch")
+    check(launches["frame_batch"] == fab.exchanges >= 1,
+          f"sharded serve: {launches['frame_batch']} frame_batch launches for "
+          f"{fab.exchanges} dispatched ticks")
+    check(launches["pack_frames_batch"] == 0, "sharded serve framed through the join")
     n_out = check_responses(cfg, resp)
     for m, (a, b) in enumerate(zip(resp, base)):
         check(a == b, f"sharded response {m} differs from the batched plane's")
@@ -614,7 +755,8 @@ def sharded_run(dev, params, cfg, wires, base, placement, label: str):
         f"every response == the batched plane's; launches {launches}")
     log(f"[sharded] fabric: {ticks} ticks ({fab.exchanges} dispatched), "
         f"{fab.router.scan_steps} router scan steps ({fab.router.scan_steps / ticks:.2f} "
-        f"per tick), {fab.frames_routed} frames; host ms per tick mean "
+        f"per tick), {fab.frames_routed} frames, one frame_batch launch per dispatched "
+        f"tick; host ms per tick mean "
         f"{1e3 * sum(tick_s) / ticks:.3f} max {1e3 * max(tick_s):.3f}, fabric total "
         f"{1e3 * sum(tick_s):.3f} ms of {1e3 * dt:.3f} ms")
     return launches, made
@@ -675,6 +817,9 @@ def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool):
     dt = time.perf_counter() - t0
     launches = read_launches()
     check(launches["pack_chunks_batch"] >= 1, "streaming serve launched no pack_chunks_batch")
+    check(launches["frame_batch"] == fab.exchanges >= 1,
+          f"streaming serve: {launches['frame_batch']} frame_batch launches for "
+          f"{fab.exchanges} dispatched ticks")
     n_out = check_responses(cfg, resp)
     for m, (a, b) in enumerate(zip(resp, base)):
         check(a == b, f"streamed response {m} differs from the batched plane's")
@@ -695,6 +840,7 @@ def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool):
     result = {"s": dt, "req_s": len(wires) / dt, "tok_s": n_out / dt,
               "ttft_p50": statistics.median(ttft), "ttft_p95": tail["p95"],
               "ttft_max": tail["max"], "ticks": ticks,
+              "exchange_ms_tick": 1e3 * sum(host_s["exchange_async"]) / ticks,
               "fabric_ms_tick": 1e3 * fabric_s / ticks, "wall_ms_tick": 1e3 * dt / ticks,
               "poll_ms": 1e3 * sum(polls) / max(1, len(polls)), "polls": len(polls),
               "b7": launches["pack_chunks_batch"], "per_shard": {s: placed.count(s) for s in shards}}
@@ -706,7 +852,8 @@ def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool):
         f"{result['ttft_p50']:.3f} p95 {result['ttft_p95']:.3f} max {result['ttft_max']:.3f}")
     log(f"[stream] {label}: {ticks} fabric ticks, {fab.router.scan_steps} router scan steps, "
         f"{fab.frames_routed} frames; host ms per tick: fabric (exchange_async + poll) "
-        f"{result['fabric_ms_tick']:.3f}, serve wall {result['wall_ms_tick']:.3f}; poll() "
+        f"{result['fabric_ms_tick']:.3f} (exchange_async {result['exchange_ms_tick']:.3f}), "
+        f"serve wall {result['wall_ms_tick']:.3f}; poll() "
         f"wait {result['poll_ms']:.3f} ms per call over {len(polls)} calls (max "
         f"{1e3 * max(polls, default=0.0):.3f}); B7 launches {result['b7']}; launches "
         f"{launches}")
@@ -723,7 +870,8 @@ def phase_streaming(dev, params, cfg, wires, base):
         f"tick {a['poll_ms']:.3f} / {b['poll_ms']:.3f} ms; fabric host ms per tick "
         f"{a['fabric_ms_tick']:.3f} / {b['fabric_ms_tick']:.3f}")
     calls = [args for r in runs for name, args in r[1] if name == "pack_chunks_batch"]
-    return [r[0] for r in runs], calls
+    framing = [args for r in runs for name, args in r[1] if name == "frame_batch"]
+    return [r[0] for r in runs], calls, framing
 
 
 def library_chunks_ms(calls, reps: int) -> float:
@@ -1008,15 +1156,17 @@ def main() -> int:
     rec_plan, rec_lanes = record_path(dev, rec_wire)
     rows = phase_kernels(dev, main_path_calls(dev, wires, rec_plan, rec_lanes))
     serve_launches, params, cfg, base = phase_serve(dev, wires)
+    fabric_launches, joins = phase_fabric(dev)
     path_launches = [serve_launches, phase_records(rec_plan, rec_lanes, rec_wire, recs),
-                     phase_fabric(dev)]
+                     fabric_launches]
     sharded_launches, recorded = phase_sharded(dev, params, cfg, wires, base)
     path_launches += sharded_launches
-    streaming_launches, chunk_calls = phase_streaming(dev, params, cfg, wires, base)
+    streaming_launches, chunk_calls, stream_framing = phase_streaming(dev, params, cfg, wires,
+                                                                      base)
     path_launches += streaming_launches
     del params
     torch.cuda.empty_cache()
-    rows.update(phase_frame_kernels(dev, recorded))
+    rows.update(phase_frame_kernels(dev, recorded, stream_framing, joins))
     rows.update(phase_chunk_kernel(dev, chunk_calls))
     ser_launches, ser_rows = phase_device_ser(dev, wires, base, rec_plan, rec_lanes, rec_wire,
                                               recs)

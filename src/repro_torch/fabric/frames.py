@@ -5,9 +5,12 @@ gives the same bits as the jnp one.  The paper's §IV-C HW-to-HW frame
 header carries ``(size, ListLevel)``; the fabric adds two words:
 
 * **CRC32** — a real CRC-32 (IEEE 802.3, the zlib polynomial), computed
-  slicing-by-4: one 256-entry table per input byte lane, one step per u32
-  word.  :func:`crc32_words` runs vectorised over every frame at once and
-  loops over the words of a frame (68 steps at ``frame_phits=16``).
+  slicing-by-4 by ``kernels.framing.crc32_words``: vectorised over every
+  frame at once, one step per word of a frame (68 steps at
+  ``frame_phits=16``).  The structure pass that builds the headers lives
+  beside it in ``kernels.framing`` (the plain version of the
+  ``frame_batch`` kernel, with which the fabric frames on the card); here
+  it is the RX check, :func:`verify_frames`.
 * **route word** — ``adaptive:u1 | src:u7 | dst:u8 | seq:u16``, so a frame
   is self-routing and the receiver reorders it per source by ``seq``
   (wraps at 2**16).  The ``adaptive`` bit is bit 31: in the port's
@@ -27,17 +30,27 @@ tensors holding the same bits; arithmetic is done in ``int64``.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
-from ..core.vectorized import lanes_to_i64, u32_to_lanes
+from ..core.vectorized import lanes_to_i64
+# the frame format's structure half is the kernels layer's; re-exported here
+# as part of the fabric's frame API
+from ..kernels.framing import (  # noqa: F401
+    ADAPTIVE_BIT,
+    FRAME_PHITS,
+    PHIT_WORDS,
+    SEQ_MOD,
+    as_i64,
+    crc32_words,
+    crc_input,
+    frame_parts_batch,
+    frame_structure,
+    pack_route,
+)
+from ..kernels.frame_pack import pack_frames_batch
 
-#: paper §V: 128-bit phits; frame = up to 500 phits (Altera 512-deep BRAM).
-PHIT_WORDS = 4  # 16 B in u32 lanes
-FRAME_PHITS = 500
 HDR_WORDS = 4  # size, list_level, crc32, route -> one phit
 
 #: header word indices
@@ -46,65 +59,11 @@ HDR_SIZE, HDR_LEVEL, HDR_CRC, HDR_ROUTE = 0, 1, 2, 3
 _MASK32 = 0xFFFFFFFF
 
 
-def _crc32_tables() -> np.ndarray:
-    """Slicing-by-4 CRC-32 tables, (4, 256) uint32.
-
-    ``T[0]`` is the classic byte-at-a-time table; ``T[k]`` advances a byte
-    through ``k`` extra zero bytes, so one u32 word folds in a single step:
-    ``crc' = T3[b0^crc] ^ T2[b1^(crc>>8)] ^ T1[b2^(crc>>16)] ^ T0[b3^(crc>>24)]``.
-    """
-    poly = np.uint32(0xEDB88320)
-    t0 = np.zeros(256, np.uint64)
-    for i in range(256):
-        c = np.uint64(i)
-        for _ in range(8):
-            c = (c >> np.uint64(1)) ^ (np.uint64(poly) if c & np.uint64(1) else np.uint64(0))
-        t0[i] = c
-    tables = np.zeros((4, 256), np.uint64)
-    tables[0] = t0
-    for k in range(1, 4):
-        tables[k] = t0[tables[k - 1] & np.uint64(0xFF)] ^ (tables[k - 1] >> np.uint64(8))
-    return tables.astype(np.uint32)
-
-
-_CRC_TABLES = _crc32_tables()
-
-
-@functools.cache
-def _tables(device: torch.device) -> torch.Tensor:
-    """The four tables as one int64 (1024,) vector on ``device``, in the
-    order the step reads them: T3 for byte 0, T2, T1, T0 for byte 3."""
-    flat = np.ascontiguousarray(_CRC_TABLES[::-1].reshape(-1), dtype=np.int64)
-    return torch.from_numpy(flat).to(device)
-
-
-def crc32_words(words: torch.Tensor) -> torch.Tensor:
-    """CRC-32 (zlib-compatible) of the little-endian bytes of u32 words.
-
-    ``words`` is ``(..., n)`` (int32 lanes or int64 values); the result is
-    ``(...,)`` int32 lanes, one CRC per row: row ``r`` equals
-    ``zlib.crc32(words[r].tobytes())``.  One step per word, all rows at
-    once (slicing-by-4: one gather of four table entries per step).
-    """
-    t = _tables(words.device)
-    w64 = words.to(torch.int64) & _MASK32
-    crc = torch.full(w64.shape[:-1], _MASK32, dtype=torch.int64, device=words.device)
-    shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int64, device=words.device)
-    base = torch.arange(4, dtype=torch.int64, device=words.device) * 256
-    for k in range(w64.shape[-1]):
-        x = w64[..., k] ^ crc
-        e = t[((x[..., None] >> shifts) & 0xFF) + base]  # (..., 4)
-        crc = e[..., 0] ^ e[..., 1] ^ e[..., 2] ^ e[..., 3]
-    return u32_to_lanes(crc ^ _MASK32)
-
-
 # ---------------------------------------------------------------------------
 # route word
 # ---------------------------------------------------------------------------
 
 MAX_RANKS = 128  # src is a u7 lane (bit 31 = adaptive flag); dst is u8
-SEQ_MOD = 1 << 16
-ADAPTIVE_BIT = 1 << 31  # route-word flag: frame may take the -1 direction
 
 
 def route_word_budget() -> dict:
@@ -123,31 +82,9 @@ def route_word_budget() -> dict:
     }
 
 
-def _i64(x, device=None) -> torch.Tensor:
-    """An int, array or tensor as an int64 tensor (on ``device`` if given)."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device or x.device, dtype=torch.int64)
-    return torch.as_tensor(np.asarray(x, dtype=np.int64), device=device)
-
-
-def pack_route(src, dst, seq, adaptive: bool = False) -> torch.Tensor:
-    """(src, dst, seq) -> route word ``adaptive:u1|src:u7|dst:u8|seq:u16``
-    as int32 lanes (broadcast over the three arguments).
-
-    ``adaptive`` sets the shortest-path flag: the router may move the frame
-    in the -1 ring direction on an axis when that way is shorter.
-    """
-    dev = next((x.device for x in (src, dst, seq) if isinstance(x, torch.Tensor)), None)
-    word = (((_i64(src, dev) & 0x7F) << 24) | ((_i64(dst, dev) & 0xFF) << 16)
-            | (_i64(seq, dev) & 0xFFFF))
-    if adaptive:
-        word = word | ADAPTIVE_BIT
-    return u32_to_lanes(word)
-
-
 def unpack_route(word) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Route word(s) -> (src, dst, seq) int64."""
-    w = _i64(word) & _MASK32
+    w = as_i64(word) & _MASK32
     return (w >> 24) & 0x7F, (w >> 16) & 0xFF, w & 0xFFFF
 
 
@@ -178,49 +115,6 @@ def route_adaptive(frames: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _crc_input(sizes, levels, routes, data) -> torch.Tensor:
-    """Words the frame CRC is computed over: size | level | route | payload."""
-    return torch.cat(
-        [sizes[..., None].to(torch.int64), levels[..., None].to(torch.int64),
-         routes[..., None].to(torch.int64), data.to(torch.int64)], dim=-1)
-
-
-def _frame_parts(
-    payloads: torch.Tensor,  # (B, W) int32 lanes
-    nbytes: torch.Tensor,  # (B,) int64
-    levels: torch.Tensor,  # (B,) int64
-    frame_phits: int,
-    routes: Optional[torch.Tensor],  # (B, 3) int64 (src, dst, seq0), or None
-    adaptive: bool,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Structure half of framing for B streams at once: (headers (B, F,
-    HDR_WORDS), masked payload (B, F, frame_words), n_frames (B,))."""
-    frame_words = frame_phits * PHIT_WORDS
-    B, W = payloads.shape
-    dev = payloads.device
-    F = -(-W // frame_words) + 1  # + terminator
-    data = torch.nn.functional.pad(payloads, (0, F * frame_words - W))
-    data = data.reshape(B, F, frame_words)
-    word_len = (nbytes + 3) // 4
-    start = torch.arange(F, dtype=torch.int64, device=dev) * frame_words
-    words_in = (word_len[:, None] - start).clamp(min=0).clamp(max=frame_words)
-    bytes_in = (nbytes[:, None] - start * 4).clamp(min=0).clamp(max=frame_words * 4)
-    # zero tail garbage inside each frame
-    col = torch.arange(frame_words, dtype=torch.int64, device=dev)
-    data = torch.where(col < words_in[..., None], data, 0)
-    if routes is None:
-        route_words = torch.zeros((B, F), dtype=torch.int32, device=dev)
-    else:
-        seq = (routes[:, 2:3] + torch.arange(F, dtype=torch.int64, device=dev)) % SEQ_MOD
-        route_words = pack_route(routes[:, 0:1], routes[:, 1:2], seq, adaptive=adaptive)
-    lv = (levels[:, None] & _MASK32).expand(B, F)
-    # the CRC covers the OTHER header words too (size, level, route)
-    crc = crc32_words(_crc_input(bytes_in, lv, route_words, data))
-    hdr = torch.stack([u32_to_lanes(bytes_in), u32_to_lanes(lv), crc, route_words], dim=-1)
-    n_frames = (words_in > 0).sum(dim=-1) + 1  # + empty terminator
-    return hdr, data, n_frames
-
-
 def frame_parts(
     payload_u32: torch.Tensor,  # (W,) int32 lanes — serialized list data
     nbytes,  # true byte length
@@ -230,13 +124,13 @@ def frame_parts(
     adaptive: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Structure half of framing: (headers (F, HDR_WORDS), masked payload
-    (F, frame_words), n_frames).  ``frame_stream`` joins the two; the
-    ``pack_frames_batch`` kernel does so on the card."""
+    (F, frame_words), n_frames).  ``frame_stream`` joins the two with the
+    ``pack_frames_batch`` kernel (its plain version on the CPU)."""
     dev = payload_u32.device
-    routes = None if route is None else _i64(list(route), dev)[None]
-    hdr, data, n = _frame_parts(
-        payload_u32[None], _i64([nbytes], dev).reshape(1), _i64([list_level], dev).reshape(1),
-        frame_phits, routes, adaptive)
+    routes = None if route is None else as_i64(list(route), dev)[None]
+    hdr, data, n = frame_structure(
+        payload_u32[None], as_i64([nbytes], dev).reshape(1),
+        as_i64([list_level], dev).reshape(1), frame_phits, routes, adaptive)
     return hdr[0], data[0], n[0]
 
 
@@ -251,35 +145,20 @@ def frame_stream(
     """Cut a byte stream into frames: (frames (F, HDR_WORDS + frame_words)
     int32 lanes, n_frames).  F is the static capacity bound incl. the empty
     end-of-list terminator.  With ``route`` set, every frame carries a
-    ``(src, dst, seq0 + i)`` route word (terminator included)."""
+    ``(src, dst, seq0 + i)`` route word (terminator included).  The
+    headers come from the structure pass; the join is the
+    ``pack_frames_batch`` kernel (B5 with given headers).  The batched
+    fabric frames with ``kernels.frame_pack.frame_batch`` instead, which
+    builds the headers in the kernel too."""
     hdr, data, n_frames = frame_parts(
         payload_u32, nbytes, list_level, frame_phits, route, adaptive=adaptive
     )
-    return torch.cat([hdr, data], dim=-1), n_frames
-
-
-def frame_parts_batch(
-    payloads_u32: torch.Tensor,  # (B, Wcap) int32 lanes
-    nbytes,  # (B,)
-    routes,  # (B, 3) — (src, dst, seq0) per stream
-    list_level=1,  # int, or (B,) per-stream ListLevels
-    frame_phits: int = FRAME_PHITS,
-    adaptive: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Batched ``frame_parts`` for multi-destination sends: one vectorised
-    structure pass over B streams.  ``list_level`` may be per stream, so a
-    mixed-tenant burst frames in one pass.  Returns (headers (B, F,
-    HDR_WORDS), payload (B, F, frame_words), n_frames (B,))."""
-    dev = payloads_u32.device
-    B = payloads_u32.shape[0]
-    return _frame_parts(payloads_u32, _i64(nbytes, dev).reshape(B),
-                        _i64(list_level, dev).expand(B), frame_phits,
-                        _i64(routes, dev).reshape(B, 3), adaptive)
+    return pack_frames_batch(hdr, data), n_frames
 
 
 def verify_frames(frames: torch.Tensor) -> torch.Tensor:
     """Per-frame CRC check (headers included): (…, F, width) -> (…, F) bool."""
-    got = crc32_words(_crc_input(frames[..., HDR_SIZE], frames[..., HDR_LEVEL],
+    got = crc32_words(crc_input(frames[..., HDR_SIZE], frames[..., HDR_LEVEL],
                                  frames[..., HDR_ROUTE], frames[..., HDR_WORDS:]))
     return got == frames[..., HDR_CRC]
 

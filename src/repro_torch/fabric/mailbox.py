@@ -10,7 +10,7 @@ whose ranks are rows of one tensor on one device.
   ranks is framed in ONE batched SER pass, routed by the router (multi-hop,
   credit flow control), and reassembled here.  By default framing, routing
   and the RX split run as one fused call (``Router.deliver_fused``, which
-  launches the ``pack_frames_batch`` and ``unpack_frames_batch`` kernels);
+  launches the ``frame_batch`` and ``unpack_frames_batch`` kernels);
   with ``FabricConfig(fused=False)`` or a ``tx_hook`` the three-stage
   engine runs instead (``kernels.ops.encode_frames_batch`` + host scatter
   + ``Router.deliver`` + ``kernels.ops.decode_frames_batch``).
@@ -710,8 +710,8 @@ class Fabric:
                 off += c
 
     def _encode(self, payloads, nbytes, routes, list_level, adaptive):
-        """Batched SER of B sends on the device (structure pass + the
-        ``pack_frames_batch`` kernel); returns the frames as u32 numpy."""
+        """Batched SER of B sends on the device (one ``frame_batch``
+        launch); returns the frames as u32 numpy."""
         r = self.router
         frames, _ = encode_frames_batch(
             r._tensor(payloads), r._tensor(nbytes), r._tensor(routes),

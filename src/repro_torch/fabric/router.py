@@ -40,12 +40,13 @@ Two delivery entry points, as in the reference:
 
 * :meth:`Router.deliver` — already-framed ``(ranks, T, width)`` TX buffers
   (the three-program engine; ``mailbox.py`` frames and scatters first).
-* :meth:`Router.deliver_fused` — the whole tick in one call: batched
-  framing, the ``pack_frames_batch`` kernel, the routed scan and the
-  ``unpack_frames_batch`` kernel, with frames on the device throughout.
-  (The reference's fused engine joins and splits frames with
-  ``jnp.concatenate`` and slicing; the port launches the two kernels,
-  which compute the same function.)
+* :meth:`Router.deliver_fused` — the whole tick in one call: framing (one
+  ``frame_batch`` launch, headers and CRC32 built in the kernel), the
+  routed scan and the ``unpack_frames_batch`` kernel, with frames on the
+  device throughout.  (The reference's fused engine builds the headers in
+  its jitted program and joins and splits frames with ``jnp.concatenate``
+  and slicing; the port launches the two kernels, which compute the same
+  function.)
 """
 from __future__ import annotations
 
@@ -614,8 +615,8 @@ class Router:
         total: int,
         faults: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
     ):
-        """One fused tick: frame every rank's sends (structure pass + the
-        ``pack_frames_batch`` kernel), lay the live frames out as that
+        """One fused tick: frame every rank's sends (one ``frame_batch``
+        launch builds the frames, CRC32 included), lay the live frames out as that
         rank's TX queue, run the routed scan, and split the delivered
         frames with the ``unpack_frames_batch`` kernel — frames stay on
         the device throughout.
@@ -627,8 +628,7 @@ class Router:
         Returns ``(rx_hdr (R, cap, HDR_WORDS), rx_pay (R, cap,
         frame_words), rx_cnt, ok, crc_ok, rx_step, rx_att, counters)``.
         """
-        from ..kernels.frame_pack import pack_frames_batch, unpack_frames_batch
-        from .frames import frame_parts_batch
+        from ..kernels.frame_pack import frame_batch, unpack_frames_batch
 
         cfg = self.config
         W = cfg.frame_width
@@ -638,13 +638,12 @@ class Router:
         T = Bmax * F  # a rank's TX queue is exactly its own frames
         rx_cap, q_cap = self._capacities(T, total)
         nb = self._tensor(nbytes).to(torch.int64)
-        hdr, data, _ = frame_parts_batch(
+        tx = frame_batch(
             self._tensor(payloads).reshape(R * Bmax, Wcap), nb.reshape(-1),
             self._tensor(routes).reshape(R * Bmax, 3),
-            list_level=self._tensor(levels.astype(np.int64)).reshape(-1),
-            frame_phits=cfg.frame_phits, adaptive=cfg.adaptive,
-        )
-        tx = pack_frames_batch(hdr, data).reshape(R, T, W)
+            self._tensor(levels.astype(np.int64)).reshape(-1),
+            cfg.frame_phits, cfg.adaptive,
+        ).reshape(R, T, W)
         # frame f of send i is live iff f < frame_capacity(nbytes_i)
         n_live = (nb + 3) // 4
         n_live = (n_live + frame_words - 1) // frame_words + 1

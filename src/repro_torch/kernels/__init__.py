@@ -4,7 +4,9 @@
 ``csrc/phit_unpack.cu``) and ``frame_pack`` the SER payload run, the header
 stamp, the routed fabric's frame assembly and RX split and the streaming
 plane's fragment assembly (``csrc/frame_pack.cu``), each kernel beside its
-plain PyTorch version; ``ops`` holds the public wrappers
+plain PyTorch version; ``framing`` the fabric's frame format and its
+structure pass in plain torch (with the join, ``frame_batch``'s plain
+version); ``ops`` holds the public wrappers
 (``decode_batch_kernel``, ``encode_run``, ``write_headers``,
 ``encode_frames_batch``, ``encode_chunks_batch``, ...).  Importing this
 package builds nothing: a kernel is built on its first launch.

@@ -1,8 +1,8 @@
 // Routed-fabric frame assembly, RX split, stream-fragment assembly, the SER
 // payload run and HW-to-HW header stamping on Hopper (sm_90a).
 //
-// Five entry points, one thread per word of the rows they write or read.
-// Each replaces a Pallas body of the reference src/repro/kernels/frame_pack.py:
+// Six entry points.  Each replaces a Pallas body of the reference
+// src/repro/kernels/frame_pack.py:
 //
 //   hgum_pack_run             <- _pack_kernel_aligned (frame_pack.py:24),
 //                                called from pack_run (:30)
@@ -10,6 +10,9 @@
 //                                called from stamp_headers (:207)
 //   hgum_pack_frames_batch    <- _assemble_kernel (frame_pack.py:82),
 //                                called from pack_frames_batch (:88)
+//   hgum_frame_batch          <- the same, with the structure pass that
+//                                feeds it (src/repro/fabric/frames.py:233)
+//                                built into the launch
 //   hgum_unpack_frames_batch  <- _split_kernel    (frame_pack.py:168),
 //                                called from unpack_frames_batch (:174)
 //   hgum_pack_chunks_batch    <- _chunk_kernel    (frame_pack.py:118),
@@ -17,26 +20,62 @@
 //                                the tail mask of the reference
 //                                kernels/ops.py:encode_chunks_batch fused in
 //
-// Frames (B5, B6).  A frame is one row of `width = 4 + frame_words` u32
-// words: the header phit [size | level | crc32 | route] and then the
-// payload.  pack joins `rows` header rows (rows, 4) and payload rows
-// (rows, frame_words) into the frames (rows, width); unpack is the mirror
-// and splits delivered frames back into the two.  For word c of row r:
-//   frame[r, c] = c < 4 ? hdr[r, c] : pay[r, c - 4]
-// The TPU kernels did the same on whole VMEM tiles (one stream per grid
-// step for pack, eight rows per step for unpack); on this card the grid is
-// flat over the words, so any row count fills the SMs and needs no padding.
+// Frame build and join (B5).  A frame is one row of `width = 4 +
+// frame_words` u32 words: the header phit [size | level | crc32 | route]
+// and then the payload.  frame_words is 4 * frame_phits, so a frame is
+// 1 + frame_phits whole 16-byte phits, and every frame row starts on a phit
+// (272 bytes = 17 phits at frame_phits = 16).  One kernel body, two
+// instances (template parameter kBuild):
+//   * hgum_frame_batch (kBuild): B streams of payload words -> (B, F, width)
+//     frames, F = ceil(Wcap / frame_words) + 1 (the size-0 terminator
+//     included), with the headers built in the same launch.  It replaces
+//     the structure pass of the reference (src/repro/fabric/frames.py:233,
+//     frame_parts_batch, under jit one fused XLA program) together with the
+//     Pallas join.  For frame f of stream b:
+//       size  = clamp(nbytes[b] - 4 f frame_words, 0, 4 frame_words)
+//       level = levels[b]
+//       route = adaptive << 31 | (src & 0x7F) << 24 | (dst & 0xFF) << 16
+//               | ((seq0 + f) & 0xFFFF)
+//       crc   = CRC-32 (zlib) of size | level | route | payload
+//     and the payload words at or past ceil(nbytes / 4) (or past Wcap) are 0.
+//   * hgum_pack_frames_batch (join): the Pallas _assemble_kernel's function,
+//     given header rows (rows, 4) and payload rows (rows, frame_words).
 //
-// What bounds them.  Pure data movement: every word is read once and
-// written once, so the bound is (bytes read + bytes written) over the
-// memory rate.  Design for that: neighbouring threads own neighbouring
-// words of the framed side, so its accesses are fully coalesced; the split
-// side is two contiguous arrays whose boundary moves by 4 words per row,
-// so a warp touches at most a few 32-byte sectors of each.  A 68-word row
-// (frame_phits = 16) is not a multiple of 16 bytes, so 16-byte vector
-// accesses would need per-row alignment handling; simple 4-byte accesses
-// are used here.  Vector loads of the payload or TMA are later work.
+// Layout.  A warp owns G consecutive frames (the build: 32 / kCrcLanes = 8;
+// the join: 32).  Its lanes first copy the frames' payload phits (16-byte
+// loads and stores, neighbouring lanes on neighbouring phits; the join
+// copies the header phits too), then the build's kCrcLanes = 4 lanes per
+// frame compute that frame's CRC and one of them stores its header phit.
+// Index math is 32-bit (a division by frame_phits per phit, never a 64-bit
+// division per word); blocks stride over the frames.
 //
+// The CRC.  Slicing-by-4 (one step per u32 word, four lookups of 256-entry
+// tables) with the tables in shared memory: lanes look up different
+// entries, which __constant__ memory would serialise.  The CRC input is
+// read as phits: the header phit [0 | size | level | route] (a zero word in
+// front of a zero-initialised CRC changes nothing) and then the payload
+// phits, re-read through L1/L2 rather than staged.  The input is cut into
+// kCrcLanes equal runs of S phits (zero phits in front pad it out, for the
+// same reason), each lane takes the zero-initialised CRC of its run, and
+// two shuffle steps join neighbours as zlib's crc32_combine does:
+// crc(A B) = shift(crc(A), |B|) ^ crc(B), where the shift by a fixed
+// length is linear and so is four lookups of a table made on the host.  The CRC with zlib's initial and final xor is then the
+// zero-initialised one xor `crc_xor` = shift(~0, message bytes) ^ ~0.
+//
+// What bounds them.  The join moves bytes only: each input word read once,
+// each output word written once.  The build adds the CRC: four shared
+// lookups per word, a few per cent of the time that 2**20 frames take at
+// the byte bound if the lookups did not conflict, but 32 random lookups
+// meet on a bank about 3.5 deep, and the combine's lookups come on top;
+// the lanes per frame trade that work against the length of each lane's
+// dependent chain.  Four lanes measured fastest on an H100 at 2**20 frames,
+// ahead of one (a chain of 68 steps) and of 32 (one warp per frame).
+//
+// RX split (B6).  unpack_frames_batch splits delivered frames (rows, width)
+// back into headers (rows, 4) and payloads (rows, frame_words), one thread
+// per word of the framed side (coalesced there; the split side is two
+// contiguous arrays whose boundary moves by 4 words per row).
+
 // Stream fragments (B7).  The streaming plane serializes every decode
 // tick's token and logprob fragments of one lane into one burst.  A
 // fragment is one row of `width = cap_w + 4` words:
@@ -98,17 +137,138 @@ constexpr int kThreads = 256;
 constexpr int kHdrWords = 4;
 constexpr int kChunkMetaWords = 3;  // stream_id, step, flags
 
-__global__ void pack_frames_kernel(const uint32_t* __restrict__ hdr,
-                                   const uint32_t* __restrict__ pay,
-                                   uint32_t* __restrict__ out, int64_t total,
-                                   int frame_words) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int width = kHdrWords + frame_words;
-  const int64_t row = i / width;
-  const int c = static_cast<int>(i - row * width);
-  out[i] = c < kHdrWords ? __ldg(hdr + row * kHdrWords + c)
-                         : __ldg(pay + row * frame_words + (c - kHdrWords));
+constexpr int kCrcTableWords = 4 * 256;
+// CRC lanes per frame of the build; the host makes log2(kCrcLanes) shift
+// tables for it (kernels/frame_pack.py, crc_tables)
+constexpr uint32_t kCrcLanes = 4;
+constexpr int kCrcSteps = 2;  // log2(kCrcLanes)
+
+// Everything a frame launch reads; unused pointers are null.
+struct FrameArgs {
+  const uint32_t* pay;        // payload rows (streams, row_words)
+  const uint32_t* hdr;        // join: header rows (rows, 4)
+  const long long* nbytes;    // build: (streams,)
+  const long long* routes;    // build: (streams, 3) src, dst, seq0
+  const long long* levels;    // build: (streams,)
+  const uint32_t* tables;     // build: CRC tables, then kCrcSteps shift tables
+  uint32_t* out;              // (n_frames, 4 + 4 * phits)
+  uint32_t n_frames;          // streams * F
+  uint32_t F;                 // frames per stream (join: 1)
+  uint32_t row_words;         // words per payload row (join: 4 * phits)
+  uint32_t phits;             // payload phits per frame
+  uint32_t crc_xor;           // shift(~0, message bytes) ^ ~0
+  uint32_t route_flag;        // the adaptive bit, or 0
+  int vec_in;                 // input rows are 16-byte aligned
+};
+
+__device__ __forceinline__ uint4 load_phit(const uint32_t* __restrict__ row, uint32_t w0,
+                                           uint32_t limit, bool vec) {
+  if (w0 >= limit) return make_uint4(0u, 0u, 0u, 0u);
+  if (vec && w0 + 4 <= limit) return __ldg(reinterpret_cast<const uint4*>(row + w0));
+  uint32_t v[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) v[t] = w0 + t < limit ? __ldg(row + w0 + t) : 0u;
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// the table layout of fabric/frames.py: T3 for byte 0, T2, T1, T0 for byte 3
+__device__ __forceinline__ uint32_t lookup4(const uint32_t* t, uint32_t x) {
+  return t[x & 0xFFu] ^ t[256 + ((x >> 8) & 0xFFu)] ^ t[512 + ((x >> 16) & 0xFFu)] ^
+         t[768 + (x >> 24)];
+}
+
+__device__ __forceinline__ uint32_t crc_phit(const uint32_t* t, uint32_t crc, uint4 v) {
+  crc = lookup4(t, v.x ^ crc);
+  crc = lookup4(t, v.y ^ crc);
+  crc = lookup4(t, v.z ^ crc);
+  return lookup4(t, v.w ^ crc);
+}
+
+// frames per warp
+template <bool kBuild>
+__host__ __device__ constexpr uint32_t frames_per_warp() {
+  return kBuild ? 32 / kCrcLanes : 32;
+}
+
+template <bool kBuild>
+__global__ void __launch_bounds__(kThreads) frame_kernel(const FrameArgs a) {
+  constexpr uint32_t G = frames_per_warp<kBuild>();
+  __shared__ uint32_t tab[kBuild ? kCrcTableWords * (1 + kCrcSteps) : 1];
+  if (kBuild) {
+    for (int i = threadIdx.x; i < kCrcTableWords * (1 + kCrcSteps); i += blockDim.x) {
+      tab[i] = __ldg(a.tables + i);
+    }
+    __syncthreads();
+  }
+  const uint32_t lane = threadIdx.x & 31u;
+  const uint32_t P = a.phits, fw = 4 * P, width = fw + 4;
+  const uint32_t per_frame = kBuild ? P : P + 1;  // phits the copy writes
+  const uint32_t warps = gridDim.x * (blockDim.x >> 5);
+  for (uint32_t first = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * G;
+       first < a.n_frames; first += warps * G) {
+    const uint32_t n_here = min(G, a.n_frames - first);
+    for (uint32_t k = lane; k < n_here * per_frame; k += 32) {
+      const uint32_t g = k / per_frame, c = k - g * per_frame;
+      const uint32_t fr = first + g;
+      uint4 v;
+      uint32_t* dst = a.out + static_cast<size_t>(fr) * width;
+      if (kBuild) {
+        const uint32_t s = fr / a.F, f = fr - s * a.F;
+        const long long words = (__ldg(a.nbytes + s) + 3) >> 2;
+        const uint32_t limit = static_cast<uint32_t>(
+            words < 0 ? 0 : (words > a.row_words ? a.row_words : words));
+        v = load_phit(a.pay + static_cast<size_t>(s) * a.row_words, f * fw + 4 * c, limit,
+                      a.vec_in);
+        dst += 4 + 4 * c;
+      } else if (c == 0) {
+        v = load_phit(a.hdr + static_cast<size_t>(fr) * 4, 0, 4, a.vec_in);
+      } else {
+        v = load_phit(a.pay + static_cast<size_t>(fr) * fw, 4 * (c - 1), fw, a.vec_in);
+        dst += 4 * c;
+      }
+      *reinterpret_cast<uint4*>(dst) = v;
+    }
+    if (kBuild) {
+      // lanes g * kCrcLanes .. + kCrcLanes - 1 take frame first + g; lanes
+      // past the last frame repeat it and store nothing
+      const uint32_t g = lane / kCrcLanes, l = lane % kCrcLanes;
+      const uint32_t fr = first + min(g, n_here - 1);
+      const uint32_t s = fr / a.F, f = fr - s * a.F;
+      const long long nb = __ldg(a.nbytes + s);
+      const long long words = (nb + 3) >> 2;
+      const uint32_t limit = static_cast<uint32_t>(
+          words < 0 ? 0 : (words > a.row_words ? a.row_words : words));
+      const long long rem = nb - 4LL * fw * f;
+      const uint32_t size = static_cast<uint32_t>(rem < 0 ? 0 : (rem > 4LL * fw ? 4LL * fw : rem));
+      const uint32_t level = static_cast<uint32_t>(__ldg(a.levels + s));
+      const long long* rt = a.routes + 3 * static_cast<size_t>(s);
+      const uint32_t route = a.route_flag | (static_cast<uint32_t>(__ldg(rt) & 0x7F) << 24) |
+                             (static_cast<uint32_t>(__ldg(rt + 1) & 0xFF) << 16) |
+                             static_cast<uint32_t>((__ldg(rt + 2) + f) & 0xFFFF);
+      const uint32_t* row = a.pay + static_cast<size_t>(s) * a.row_words;
+      // the CRC input is 1 + P phits; lane l takes phits [l S, (l + 1) S)
+      // of it padded in front to kCrcLanes * S phits
+      const uint32_t S = (P + kCrcLanes) / kCrcLanes;
+      const uint32_t pad = kCrcLanes * S - (P + 1);
+      uint32_t crc = 0;
+      for (uint32_t q = max(l * S, pad); q < (l + 1) * S; ++q) {
+        const uint32_t ph = q - pad;
+        const uint4 v = ph == 0 ? make_uint4(0u, size, level, route)
+                                : load_phit(row, f * fw + 4 * (ph - 1), limit, a.vec_in);
+        crc = crc_phit(tab, crc, v);
+      }
+#pragma unroll
+      for (int k = 0; k < kCrcSteps; ++k) {
+        // join the run of 2**k lanes to the right: shift by its 16 S 2**k bytes
+        const uint32_t right = __shfl_down_sync(0xFFFFFFFFu, crc, 1 << k, kCrcLanes);
+        crc = lookup4(tab + kCrcTableWords * (1 + k), crc) ^ right;
+      }
+      if (l == 0 && g < n_here) {
+        *reinterpret_cast<uint4*>(a.out + static_cast<size_t>(fr) * width) =
+            make_uint4(size, level, crc ^ a.crc_xor, route);
+      }
+    }
+  }
 }
 
 __global__ void unpack_frames_kernel(const uint32_t* __restrict__ frames,
@@ -216,16 +376,68 @@ inline unsigned int n_blocks(int64_t total) {
   return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
 }
 
+// Blocks for a frame launch of `frames`, `per_warp` frames to a warp: one
+// warp's share each, at most eight blocks per SM (the kernel strides).
+inline unsigned int frame_blocks(int64_t frames, int per_warp) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  const int64_t per_block = static_cast<int64_t>(per_warp) * (kThreads / 32);
+  const int64_t need = (frames + per_block - 1) / per_block;
+  return static_cast<unsigned int>(need < 8LL * sms ? need : 8LL * sms);
+}
+
 }  // namespace
 
 extern "C" {
 
 int hgum_pack_frames_batch(const void* hdr, const void* pay, void* out, long long rows,
                            int frame_words, void* stream) {
-  const int64_t total = static_cast<int64_t>(rows) * (kHdrWords + frame_words);
-  pack_frames_kernel<<<n_blocks(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(hdr), static_cast<const uint32_t*>(pay),
-      static_cast<uint32_t*>(out), total, frame_words);
+  if (frame_words % 4 != 0 || rows >= (1LL << 32)) return cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  FrameArgs a = {};
+  a.hdr = static_cast<const uint32_t*>(hdr);
+  a.pay = static_cast<const uint32_t*>(pay);
+  a.out = static_cast<uint32_t*>(out);
+  a.n_frames = static_cast<uint32_t>(rows);
+  a.F = 1;
+  a.phits = static_cast<uint32_t>(frame_words / 4);
+  a.row_words = static_cast<uint32_t>(frame_words);
+  a.vec_in = ((reinterpret_cast<uintptr_t>(hdr) | reinterpret_cast<uintptr_t>(pay)) & 15) == 0;
+  frame_kernel<false><<<frame_blocks(rows, frames_per_warp<false>()), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int hgum_frame_batch(const void* pay, const void* nbytes, const void* routes,
+                     const void* levels, const void* tables, void* out, long long streams,
+                     long long row_words, int frames_per_stream, int frame_phits,
+                     unsigned int crc_xor, int adaptive, void* stream) {
+  const long long n_frames = streams * frames_per_stream;
+  if (n_frames >= (1LL << 32) || row_words + 4LL * frame_phits >= (1LL << 32)) {
+    return cudaErrorInvalidValue;
+  }
+  if (n_frames == 0) return 0;
+  FrameArgs a = {};
+  a.pay = static_cast<const uint32_t*>(pay);
+  a.nbytes = static_cast<const long long*>(nbytes);
+  a.routes = static_cast<const long long*>(routes);
+  a.levels = static_cast<const long long*>(levels);
+  a.tables = static_cast<const uint32_t*>(tables);
+  a.out = static_cast<uint32_t*>(out);
+  a.n_frames = static_cast<uint32_t>(n_frames);
+  a.F = static_cast<uint32_t>(frames_per_stream);
+  a.row_words = static_cast<uint32_t>(row_words);
+  a.phits = static_cast<uint32_t>(frame_phits);
+  a.crc_xor = crc_xor;
+  a.route_flag = adaptive ? 0x80000000u : 0u;
+  a.vec_in = (reinterpret_cast<uintptr_t>(pay) & 15) == 0 && row_words % 4 == 0;
+  frame_kernel<true><<<frame_blocks(n_frames, frames_per_warp<true>()), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,10 +14,20 @@ plain PyTorch version with the same signature:
   ``word + 1``, in order, so the last header wins where two meet; words
   outside ``[0, W)`` are dropped (the reference's numpy oracle wraps a
   negative word and raises past the end).  Replaces ``_header_kernel``.
+* :func:`frame_batch` — the routed fabric's framing in one launch: B
+  streams of payload words, their byte counts, routes ``(src, dst, seq0)``
+  and ListLevels -> the wire-layout frames ``(B, F, 4 + frame_words)``,
+  headers (size, level, CRC32, route) built in the kernel.  Replaces the
+  Pallas body ``_assemble_kernel`` together with the structure pass that
+  feeds it in the reference (``fabric/frames.py``'s
+  ``frame_parts_batch``); its plain version is that structure pass
+  (``framing.frame_parts_batch``) followed by the join.
 * :func:`pack_frames_batch` — join ``(..., 4)`` header rows (size, level,
   CRC32, route) and ``(..., frame_words)`` payload rows into wire-layout
-  frames ``(..., 4 + frame_words)``.  Replaces the Pallas body
-  ``_assemble_kernel`` of ``repro.kernels.frame_pack``.
+  frames ``(..., 4 + frame_words)``, the Pallas ``_assemble_kernel``'s own
+  function; the same kernel body as :func:`frame_batch` with the header
+  build compiled out.  On the card a frame is whole 16-byte phits
+  (``frame_words % 4 == 0``).
 * :func:`unpack_frames_batch` — split ``(N, 4 + frame_words)`` delivered
   frames into headers ``(N, 4)`` and payloads ``(N, frame_words)``.
   Replaces ``_split_kernel``.
@@ -28,8 +38,9 @@ plain PyTorch version with the same signature:
   past ``count * elem_words``, the tail mask the reference's
   ``kernels.ops.encode_chunks_batch`` applies before its kernel.
 
-The structure half of framing (sizes, CRC32, route words, tail masking) is
-``fabric.frames.frame_parts_batch``; these kernels move the words.
+The structure half of framing (sizes, CRC32, route words, tail masking) in
+plain torch is ``framing.frame_parts_batch``: with the join, the plain
+version of :func:`frame_batch` and the reference its kernel is held to.
 
 Lanes are ``int32`` tensors holding u32 bits.  Dispatch: a wrapper takes
 its plain version only for tensors on the CPU.  For CUDA tensors it
@@ -44,10 +55,12 @@ import ctypes
 import functools
 from typing import Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.vectorized import lanes_to_i64, u32_to_lanes
 from . import _build
+from .framing import CRC_TABLES, frame_parts_batch
 from .phit_unpack import _lane_mask, _stream
 
 HDR_WORDS = 4
@@ -59,9 +72,14 @@ LAUNCHES: Dict[str, int] = {
     "pack_run": 0,
     "stamp_headers": 0,
     "pack_frames_batch": 0,
+    "frame_batch": 0,
     "unpack_frames_batch": 0,
     "pack_chunks_batch": 0,
 }
+
+# CRC lanes per frame of the frame_batch kernel (kCrcLanes in
+# csrc/frame_pack.cu): the shift tables are made for it
+_CRC_LANES = 4
 
 _SIGNATURES = {
     "hgum_pack_run": [
@@ -75,6 +93,11 @@ _SIGNATURES = {
     "hgum_pack_frames_batch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_void_p,
+    ],
+    "hgum_frame_batch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,
     ],
     "hgum_unpack_frames_batch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -91,6 +114,8 @@ _RECORDED: Optional[List[Tuple[str, tuple]]] = None
 
 # one launch covers at most 2**31 - 1 blocks of 256 threads
 _MAX_WORDS = (2**31 - 1) * 256
+# the frame kernel's index math is 32-bit: frames, and words of a payload row
+_MAX_FRAMES = 2**32 - 1
 
 
 def reset_launches() -> None:
@@ -135,20 +160,65 @@ def _launch(kernel: str, inputs: tuple, fn: str, *args) -> None:
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """Validate the operands; True routes to the plain version."""
+    """Validate the operands, cheapest test first; True routes to the plain
+    version."""
     for t in tensors:
         if t.dtype != torch.int32:
             raise ValueError(f"operands are int32 lanes of u32 words, got {t.dtype}")
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"operands on different devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            devs = {str(x.device) for x in tensors}
+            raise ValueError(f"operands on different devices: {sorted(devs)}")
+    if dev.type == "cuda":
+        return False
     if dev.type == "cpu":
         return True
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}: the kernels run on CUDA, "
-                         f"their plain versions on the CPU")
-    return False
+    raise ValueError(f"unsupported device {dev}: the kernels run on CUDA, "
+                     f"their plain versions on the CPU")
+
+
+def _shift_table(n_bytes: int, crc: np.ndarray) -> np.ndarray:
+    """(1024,) uint32: entry ``256 j + b`` is the zero-initialised CRC
+    register ``b << 8 j`` after ``n_bytes`` zero bytes.  The shift is linear,
+    so it is four lookups of this table for any register."""
+    t0 = crc[0].astype(np.uint32)
+    v = (np.arange(256, dtype=np.uint32)[None, :]
+         << (8 * np.arange(4, dtype=np.uint32))[:, None]).reshape(-1)
+    for _ in range(n_bytes):
+        v = t0[v & 0xFF] ^ (v >> 8)
+    return v
+
+
+def _shift_by(table: np.ndarray, v: np.ndarray) -> np.ndarray:
+    return (table[v & 0xFF] ^ table[256 + ((v >> 8) & 0xFF)]
+            ^ table[512 + ((v >> 16) & 0xFF)] ^ table[768 + (v >> 24)])
+
+
+def crc_tables(frame_phits: int) -> Tuple[np.ndarray, int]:
+    """What the frame_batch kernel reads besides the frames: the CRC-32
+    slicing-by-4 tables (in ``framing``'s order: T3 for byte 0 ... T0 for
+    byte 3), then two shift tables for its 4 CRC lanes per frame, step
+    ``k`` shifting by ``16 S 2**k`` bytes with ``S = ceil((1 + frame_phits)
+    / 4)`` the phits each lane takes; and ``crc_xor``, the
+    zero-initialised CRC of a frame's message to zlib's CRC (``shift(~0,
+    message bytes) ^ ~0``)."""
+    crc = CRC_TABLES
+    blob = [np.ascontiguousarray(crc[::-1].reshape(-1), dtype=np.uint32)]
+    shift = _shift_table(-(-(1 + frame_phits) // _CRC_LANES) * 16, crc)
+    for _ in range(_CRC_LANES.bit_length() - 1):
+        blob.append(shift)
+        shift = _shift_by(shift, shift)  # twice the length
+    reg = 0xFFFFFFFF
+    for _ in range(4 * (3 + 4 * frame_phits)):  # the message's bytes
+        reg = int(crc[0][reg & 0xFF]) ^ (reg >> 8)
+    return np.concatenate(blob), reg ^ 0xFFFFFFFF
+
+
+@functools.cache
+def _crc_tables_on(device: torch.device, frame_phits: int) -> Tuple[torch.Tensor, int]:
+    blob, crc_xor = crc_tables(frame_phits)
+    return torch.from_numpy(blob.view(np.int32)).to(device), crc_xor
 
 
 def _check_pack_run(tokens: torch.Tensor, stride: int, nbytes: int) -> Tuple[int, int]:
@@ -204,6 +274,15 @@ def stamp_headers_plain(wire: torch.Tensor, headers: torch.Tensor) -> torch.Tens
 
 def pack_frames_batch_plain(headers: torch.Tensor, payloads: torch.Tensor) -> torch.Tensor:
     return torch.cat([headers, payloads], dim=-1)
+
+
+def frame_batch_plain(payloads: torch.Tensor, nbytes, routes, levels, frame_phits: int,
+                      adaptive: bool = False) -> torch.Tensor:
+    """The structure pass (``framing.frame_parts_batch``: sizes, CRC32,
+    route words, tail mask) followed by the join."""
+    hdr, data, _ = frame_parts_batch(payloads, nbytes, routes, list_level=levels,
+                                     frame_phits=frame_phits, adaptive=adaptive)
+    return pack_frames_batch_plain(hdr, data)
 
 
 def unpack_frames_batch_plain(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -270,7 +349,7 @@ def stamp_headers(wire: torch.Tensor, headers: torch.Tensor) -> torch.Tensor:
 def pack_frames_batch(headers: torch.Tensor, payloads: torch.Tensor) -> torch.Tensor:
     """Frames ``(..., 4 + frame_words)`` from headers ``(..., 4)`` and
     payloads ``(..., frame_words)`` with the same leading shape (the
-    reference takes ``(B, F, ·)``)."""
+    reference takes ``(B, F, ·)``); on the card ``frame_words % 4 == 0``."""
     if headers.shape[-1] != HDR_WORDS or headers.shape[:-1] != payloads.shape[:-1]:
         raise ValueError(f"headers {tuple(headers.shape)} and payloads "
                          f"{tuple(payloads.shape)} do not pair up as (..., 4) and "
@@ -279,8 +358,11 @@ def pack_frames_batch(headers: torch.Tensor, payloads: torch.Tensor) -> torch.Te
         return pack_frames_batch_plain(headers, payloads)
     frame_words = payloads.shape[-1]
     rows = headers.numel() // HDR_WORDS
-    if rows * (HDR_WORDS + frame_words) > _MAX_WORDS:
-        raise ValueError(f"{rows} frames of {frame_words} words exceed one launch")
+    if frame_words % 4:
+        raise ValueError(f"frames of {frame_words} payload words are not whole 16-byte "
+                         f"phits: the card's kernel needs frame_words % 4 == 0")
+    if rows > _MAX_FRAMES:
+        raise ValueError(f"{rows} frames exceed one launch")
     headers, payloads = headers.contiguous(), payloads.contiguous()
     out = torch.empty(headers.shape[:-1] + (HDR_WORDS + frame_words,),
                       dtype=torch.int32, device=headers.device)
@@ -288,6 +370,52 @@ def pack_frames_batch(headers: torch.Tensor, payloads: torch.Tensor) -> torch.Te
         _launch("pack_frames_batch", (headers, payloads), "hgum_pack_frames_batch",
                 headers.data_ptr(), payloads.data_ptr(), out.data_ptr(), rows,
                 frame_words, _stream(out))
+    return out
+
+
+def frame_batch(payloads: torch.Tensor, nbytes, routes, levels, frame_phits: int,
+                adaptive: bool = False) -> torch.Tensor:
+    """Frame B streams in one launch: payloads ``(B, Wcap)`` int32 lanes,
+    ``nbytes (B,)``, ``routes (B, 3)`` (src, dst, seq0) and ``levels`` (an
+    int or ``(B,)``) -> frames ``(B, F, 4 + 4 * frame_phits)`` with ``F =
+    ceil(Wcap / (4 * frame_phits)) + 1`` (the size-0 terminator included),
+    bit for bit ``framing.frame_parts_batch`` followed by the join:
+    header ``[size | level | crc32 | route]`` with ``seq = (seq0 + f) mod
+    2**16`` and the adaptive bit, the payload zeroed past each stream's
+    ``ceil(nbytes / 4)`` words."""
+    if payloads.dim() != 2 or payloads.dtype != torch.int32:
+        raise ValueError(f"payloads must be (B, Wcap) int32 lanes, got {payloads.dtype} "
+                         f"{tuple(payloads.shape)}")
+    if frame_phits < 1:
+        raise ValueError(f"frame_phits must be >= 1, got {frame_phits}")
+    if not payloads.is_cuda:
+        if payloads.device.type != "cpu":
+            raise ValueError(f"unsupported device {payloads.device}: the kernels run on "
+                             f"CUDA, their plain versions on the CPU")
+        return frame_batch_plain(payloads, nbytes, routes, levels, frame_phits, adaptive)
+    dev = payloads.device
+    B, row_words = payloads.shape
+    nb = torch.as_tensor(nbytes, dtype=torch.int64, device=dev)
+    rt = torch.as_tensor(routes, dtype=torch.int64, device=dev)
+    lv = torch.as_tensor(levels, dtype=torch.int64, device=dev)
+    if nb.numel() != B or rt.numel() != 3 * B or lv.numel() not in (1, B):
+        raise ValueError(f"nbytes {tuple(nb.shape)}, routes {tuple(rt.shape)} and levels "
+                         f"{tuple(lv.shape)} do not match {B} streams as (B,), (B, 3) "
+                         f"and (B,)")
+    payloads, nb = payloads.contiguous(), nb.reshape(B).contiguous()
+    rt, lv = rt.reshape(B, 3).contiguous(), lv.reshape(-1).expand(B).contiguous()
+    frame_words = 4 * frame_phits
+    F = -(-row_words // frame_words) + 1
+    if B * F > _MAX_FRAMES or row_words + frame_words > _MAX_FRAMES:
+        raise ValueError(f"{B} streams of {row_words} words in frames of {frame_phits} "
+                         f"phits exceed one launch")
+    tables, crc_xor = _crc_tables_on(dev, frame_phits)
+    out = torch.empty((B, F, HDR_WORDS + frame_words), dtype=torch.int32, device=dev)
+    if B:
+        _launch("frame_batch", (payloads, nb, rt, lv, frame_phits, adaptive),
+                "hgum_frame_batch", payloads.data_ptr(), nb.data_ptr(), rt.data_ptr(),
+                lv.data_ptr(), tables.data_ptr(), out.data_ptr(), B, row_words, F,
+                frame_phits, crc_xor, int(adaptive), _stream(out))
     return out
 
 

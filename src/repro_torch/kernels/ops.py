@@ -15,8 +15,8 @@ HW-to-HW frame headers into a framed stream.
 
 ``encode_frames_batch`` / ``decode_frames_batch`` are the routed fabric's
 batched SER and RX split (counterparts of the reference functions of the
-same names): the frame structure pass of ``fabric.frames`` plus one
-``pack_frames_batch`` launch, and one ``unpack_frames_batch`` launch.
+same names): one ``frame_batch`` launch (headers, CRC32 included, built in
+the kernel), and one ``unpack_frames_batch`` launch.
 
 Tensors on a CUDA device launch the CUDA kernels; tensors on the CPU take
 the kernels' plain versions.  Lanes are ``int32`` tensors holding u32 bits.
@@ -31,8 +31,8 @@ import torch
 from ..core.vectorized import BatchedDecodePlan, DecodePlan, stack_wires
 from ..device import DeviceLike, default_device
 from .frame_pack import (
+    frame_batch,
     pack_chunks_batch,
-    pack_frames_batch,
     pack_run,
     stamp_headers,
     unpack_frames_batch,
@@ -203,16 +203,19 @@ def encode_frames_batch(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-destination SER: B wires -> B routed framed streams.
 
-    One vectorised structure pass (sizes, CRC32, route words) plus one
-    ``pack_frames_batch`` launch.  Returns (frames (B, F, width) int32
-    lanes, n_frames (B,))."""
-    from ..fabric.frames import frame_parts_batch
-
-    hdr, data, n_frames = frame_parts_batch(
-        payloads_u32, nbytes, routes, list_level=list_level,
-        frame_phits=frame_phits, adaptive=adaptive,
-    )
-    return pack_frames_batch(hdr, data), n_frames
+    One ``frame_batch`` launch builds the frames, sizes, CRC32 and route
+    words included.  Returns (frames (B, F, width) int32 lanes, n_frames
+    (B,))."""
+    dev = payloads_u32.device
+    B = payloads_u32.shape[0]
+    nb = torch.as_tensor(nbytes, dtype=torch.int64, device=dev).reshape(B)
+    frames = frame_batch(payloads_u32, nb, routes, list_level, frame_phits, adaptive)
+    # the reference's (words_in > 0).sum() + 1: the frames of the F that
+    # hold payload, plus the terminator (F + 1 for nbytes past the cap)
+    frame_words = 4 * frame_phits
+    n_frames = (((nb + 3) // 4 + frame_words - 1) // frame_words).clamp(
+        0, frames.shape[1]) + 1
+    return frames, n_frames
 
 
 def decode_frames_batch(frames_u32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -100,7 +100,9 @@ def _library() -> ctypes.CDLL:
 
 
 def _launch(kernel: str, call: Tuple[torch.Tensor, tuple], fn: str, *args) -> None:
-    """Launch ``fn`` for the wrapper call ``call`` = (wire, args)."""
+    """Launch ``fn`` for the wrapper call ``call`` = (wire, args).  The entry
+    point is the ctypes function object that :func:`_library` resolved and
+    typed once (``CDLL`` keeps it as an attribute)."""
     lib = _library()
     rc = getattr(lib, fn)(*args)
     if rc != 0:
@@ -112,28 +114,32 @@ def _launch(kernel: str, call: Tuple[torch.Tensor, tuple], fn: str, *args) -> No
 
 
 def _on_cpu(wire: torch.Tensor, nbytes: int, rows: int) -> bool:
-    """Validate the arguments; True routes to the plain version."""
+    """Validate the arguments, cheapest test first; True routes to the
+    plain version."""
+    if nbytes < 1:
+        raise ValueError(f"nbytes must be >= 1, got {nbytes}")
+    if rows < 0:
+        raise ValueError(f"row count must be >= 0, got {rows}")
     if wire.dtype != torch.int32 or wire.dim() != 1 or not wire.is_contiguous():
         raise ValueError(
             f"wire must be a contiguous 1-D int32 tensor of u32 words, got "
             f"{wire.dtype} {tuple(wire.shape)}"
         )
-    if nbytes < 1:
-        raise ValueError(f"nbytes must be >= 1, got {nbytes}")
-    if rows < 0:
-        raise ValueError(f"row count must be >= 0, got {rows}")
+    if wire.is_cuda:
+        if rows * ((nbytes + 3) // 4) > _MAX_WORDS:
+            raise ValueError(f"{rows} rows of {nbytes} bytes exceed one launch")
+        return False
     if wire.device.type == "cpu":
         return True
-    if wire.device.type != "cuda":
-        raise ValueError(f"unsupported device {wire.device}: the kernels run "
-                         f"on CUDA, their plain versions on the CPU")
-    if rows * ((nbytes + 3) // 4) > _MAX_WORDS:
-        raise ValueError(f"{rows} rows of {nbytes} bytes exceed one launch")
-    return False
+    raise ValueError(f"unsupported device {wire.device}: the kernels run "
+                     f"on CUDA, their plain versions on the CPU")
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current CUDA stream of ``t``'s device, read
+    anew on every call (a caller may switch streams between launches)
+    without building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _lane_mask(nbytes: int, nlanes: int, device) -> torch.Tensor:

@@ -154,6 +154,131 @@ def test_unpack_frames_kernel_equals_plain(cuda_device, N, fw):
     assert torch.equal(hdr, want[0]) and torch.equal(pay, want[1])
 
 
+# frame_batch cases: (nbytes per stream, frame_phits, cap words); routes put
+# src and dst at their field widths and seq0 within F of 2**16
+FRAME_BATCH_CASES = {
+    "empty-and-short": ([0, 1, 3, 4, 8], 2, 24),
+    "frame-edges": ([32, 33, 31, 64, 65], 2, 24),
+    "full-and-over-cap": ([96, 95, 97, 2, 5], 2, 24),
+    "fabric-frames": ([0, 257, 1024, 1, 4000], 16, 1024),
+    "odd-cap": ([0, 9, 40, 41, 45], 2, 11),  # rows of 11 words: scalar loads
+}
+
+
+def _frame_batch_inputs(device, case, misaligned=False):
+    nbytes, phits, cap = FRAME_BATCH_CASES[case]
+    B = len(nbytes)
+    rng = np.random.default_rng(len(case) + phits)
+    flat = torch.from_numpy(rng.integers(0, 2**32, B * cap + 1, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(device)
+    pay = (flat[1:] if misaligned else flat[:-1]).view(B, cap)  # a view 4 bytes off
+    routes = torch.tensor([[0, 255, 65534], [127, 0, 65535], [5, 200, 65533], [126, 1, 0],
+                           [64, 128, 65530]], dtype=torch.int64, device=device)
+    levels = torch.tensor([1, 2, 255, 0, 2**32 - 1], dtype=torch.int64, device=device)
+    nb = torch.tensor(nbytes, dtype=torch.int64, device=device)
+    return pay, nb, routes, levels, phits
+
+
+@pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "view"])
+@pytest.mark.parametrize("adaptive", [False, True], ids=["shortest", "adaptive"])
+@pytest.mark.parametrize("case", sorted(FRAME_BATCH_CASES))
+def test_frame_batch_kernel_equals_plain(cuda_device, case, adaptive, misaligned):
+    """The kernel equals the plain structure pass + join, bit for bit."""
+    pay, nb, routes, levels, phits = _frame_batch_inputs(cuda_device, case, misaligned)
+    want = fp.frame_batch_plain(pay, nb, routes, levels, phits, adaptive)
+    before = fp.LAUNCHES["frame_batch"]
+    got = fp.frame_batch(pay, nb, routes, levels, phits, adaptive)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["frame_batch"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), fp.frame_batch_plain(pay.cpu(), nb.cpu(), routes.cpu(),
+                                                       levels.cpu(), phits, adaptive))
+
+
+def test_frame_batch_many_frames(cuda_device):
+    """More frames than the grid has warps: the blocks stride."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    B, cap = 4099, 1024
+    pay = torch.randint(-2**31, 2**31, (B, cap), dtype=torch.int32, device=cuda_device,
+                        generator=g)
+    nb = torch.randint(0, 4 * cap + 1, (B,), device=cuda_device, generator=g)
+    routes = torch.randint(0, 2**16, (B, 3), device=cuda_device, generator=g)
+    levels = torch.randint(0, 256, (B,), device=cuda_device, generator=g)
+    want = fp.frame_batch_plain(pay, nb, routes, levels, 16, True)
+    assert torch.equal(fp.frame_batch(pay, nb, routes, levels, 16, True), want)
+
+
+def test_pack_frames_kernel_needs_whole_phits(cuda_device):
+    with pytest.raises(ValueError, match="whole 16-byte"):
+        fp.pack_frames_batch(torch.zeros(2, 4, dtype=torch.int32, device=cuda_device),
+                             torch.zeros(2, 6, dtype=torch.int32, device=cuda_device))
+
+
+def test_framing_on_card_is_one_launch_without_the_crc_loop(cuda_device, monkeypatch):
+    """ops.encode_frames_batch and Router.deliver_fused frame a batch with
+    one frame_batch launch each: the structure pass and its per-word CRC
+    loop never run; the loop runs only in the router's RX check (once per
+    fused tick, verify_frames)."""
+    from repro_torch.fabric import frames as fr
+    from repro_torch.kernels import framing
+
+    def refuse(*a, **k):
+        raise AssertionError("the framing structure pass ran on the card")
+
+    pay, nb, routes, levels, phits = _frame_batch_inputs(cuda_device, "fabric-frames")
+    want, wn = ops.encode_frames_batch(pay.cpu(), nb.cpu(), routes.cpu(),
+                                       list_level=levels.cpu(), frame_phits=phits)
+    for name in ("frame_structure", "crc32_words"):
+        monkeypatch.setattr(framing, name, refuse)
+    monkeypatch.setattr(fr, "frame_structure", refuse)
+    crc_calls = []
+    inner = fr.crc32_words
+    monkeypatch.setattr(fr, "crc32_words", lambda w: (crc_calls.append(1), inner(w))[1])
+    before = fp.LAUNCHES["frame_batch"]
+    got, n = ops.encode_frames_batch(pay, nb, routes, list_level=levels, frame_phits=phits)
+    assert fp.LAUNCHES["frame_batch"] == before + 1 and crc_calls == []
+    assert torch.equal(got.cpu(), want) and torch.equal(n.cpu(), wn)
+
+    fab = Fabric(n_ranks=8, config=FabricConfig(arq=False), device=cuda_device)
+    ticks = []
+    deliver = fab.router.deliver_fused
+    fab.router.deliver_fused = lambda *a, **k: (ticks.append(1), deliver(*a, **k))[1]
+    rng = np.random.default_rng(7)
+    for i in range(12):
+        fab.send(i % 8, (3 * i + 1) % 8,
+                 rng.integers(0, 256, int(rng.integers(1, 900)), dtype=np.uint8).tobytes())
+    before = fp.LAUNCHES["frame_batch"]
+    got = []
+    for _ in range(6):
+        fab.exchange()
+        for r in range(8):
+            got += [x for x in fab.mailbox(r).recv()]
+    assert len(ticks) >= 1 and fp.LAUNCHES["frame_batch"] == before + len(ticks)
+    assert len(crc_calls) == len(ticks)  # the RX check, once per tick
+    assert len(got) == 12 and all(x.ok for x in got)
+
+
+@pytest.mark.parametrize("view", [0, 1, 2, 3], ids=lambda v: f"view+{v}")
+@pytest.mark.parametrize("nlanes", [1, 3, 4, 5])
+def test_dense_run_vector_route(cuda_device, nlanes, view):
+    """B1's 16-byte route on dense runs: every start phase, from base_w and
+    from a wire that is a view 4, 8 or 12 bytes into its storage, word
+    counts that leave a tail, rows past the wire."""
+    full = _wire(cuda_device, words=4096 + 3)
+    wire = full[view:view + 4096]
+    nbytes = 4 * nlanes - (nlanes > 1)
+    for base_w in (0, 1, 2, 3, 5, 4000):
+        for count in (1, 2, 7, (4096 - base_w) // nlanes, (4096 - base_w) // nlanes + 9):
+            before = pu.LAUNCHES["unpack_run_aligned"]
+            got = pu.unpack_run_aligned(wire, 4 * base_w, 4 * nlanes, count, nbytes)
+            torch.cuda.synchronize()
+            assert pu.LAUNCHES["unpack_run_aligned"] == before + 1
+            want = pu.unpack_run_aligned_plain(wire, 4 * base_w, 4 * nlanes, count, nbytes)
+            assert torch.equal(got, want), (base_w, count)
+            assert torch.equal(got.cpu(), pu.unpack_run_aligned_plain(
+                wire.cpu(), 4 * base_w, 4 * nlanes, count, nbytes))
+
+
 def test_frame_kernel_wrappers_refuse_mixed_devices(cuda_device):
     with pytest.raises(ValueError, match="different devices"):
         fp.pack_frames_batch(torch.zeros(2, 4, dtype=torch.int32, device=cuda_device),
@@ -185,7 +310,7 @@ def test_fabric_on_card_equals_host(cuda_device, fused):
         out.append((got, fab.counters_total()))
     assert out[0][0] == out[1][0] and len(out[0][0]) == len(sends)
     np.testing.assert_array_equal(out[0][1], out[1][1])
-    assert fp.LAUNCHES["pack_frames_batch"] >= 1 and fp.LAUNCHES["unpack_frames_batch"] >= 1
+    assert fp.LAUNCHES["frame_batch"] >= 1 and fp.LAUNCHES["unpack_frames_batch"] >= 1
 
 
 def test_sharded_serve_on_card_equals_host(cuda_device):
@@ -196,7 +321,7 @@ def test_sharded_serve_on_card_equals_host(cuda_device):
     kw = dict(max_new=4, pad_to=16, slots=4, n_shards=3)
     fp.reset_launches()
     got = serve.serve_requests_sharded(params_gpu, cfg, wires, device=cuda_device, **kw)
-    assert fp.LAUNCHES["pack_frames_batch"] >= 1 and fp.LAUNCHES["unpack_frames_batch"] >= 1
+    assert fp.LAUNCHES["frame_batch"] >= 1 and fp.LAUNCHES["unpack_frames_batch"] >= 1
     assert got == serve.serve_requests_sharded(params_cpu, cfg, wires, device="cpu", **kw)
     assert got == serve.serve_requests(params_gpu, cfg, wires, device=cuda_device,
                                        max_new=4, pad_to=16, slots=4)

@@ -11,6 +11,7 @@ mode; the CUDA kernels themselves are held to their plain versions on the
 card by ``tests/test_torch_cuda.py``.
 """
 import zlib
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -150,6 +151,123 @@ def test_encode_decode_frames_batch_match_jax():
         np.testing.assert_array_equal(lanes_u32(g), np.asarray(w))
 
 
+@pytest.mark.parametrize("nbytes", [[0, 1, 3, 4], [32, 33, 95, 96], [97, 128, 129, 4000]],
+                         ids=["short", "edges", "over-cap"])
+def test_encode_frames_batch_n_frames_match_jax(nbytes):
+    """``n_frames`` as the reference counts it (the frames holding payload,
+    plus the terminator), also for byte counts past the payload cap of 96
+    bytes, where it is F + 1; the frames stay equal too."""
+    from repro.kernels import ops as jops
+
+    rng = np.random.default_rng(len(nbytes) + sum(nbytes))
+    payloads = _u32(rng, (4, 24))
+    nbytes = np.array(nbytes, np.int32)
+    routes = np.array([[0, 1, 0], [2, 7, 100], [5, 5, 65535], [7, 0, 3]], np.int32)
+    got, gn = ops.encode_frames_batch(_lanes(payloads), nbytes, routes, frame_phits=2)
+    want, wn = jops.encode_frames_batch(jnp.asarray(payloads), jnp.asarray(nbytes),
+                                        jnp.asarray(routes), frame_phits=2)
+    np.testing.assert_array_equal(gn.numpy(), np.asarray(wn))
+    np.testing.assert_array_equal(lanes_u32(got), np.asarray(want))
+
+
+# frame_batch (B5 with the headers built in the launch): its plain version
+# against the JAX structure pass + the Pallas join; cases by stream
+_FB_CASES = {
+    # name: (nbytes per stream, frame_phits, cap words)
+    "empty-and-short": ([0, 1, 3, 4, 8], 2, 24),
+    "frame-edges": ([32, 33, 31, 64, 65], 2, 24),  # one frame exactly, one byte over
+    "full-and-over-cap": ([96, 95, 97, 2, 5], 2, 24),
+    "wide-frames": ([0, 257, 1024, 1, 700], 16, 256),
+}
+
+
+@pytest.mark.parametrize("adaptive", [False, True], ids=["shortest", "adaptive"])
+@pytest.mark.parametrize("case", sorted(_FB_CASES))
+def test_frame_batch_plain_matches_jax_and_pallas(case, adaptive):
+    """Sizes, per-stream levels, CRCs and route words (src and dst at their
+    field widths, seq0 within F of 2**16 so the sequence wraps) equal the
+    JAX ``frame_parts_batch`` joined by the Pallas ``pack_frames_batch``."""
+    nbytes, phits, cap = _FB_CASES[case]
+    nbytes = np.array(nbytes, np.int32)
+    B = len(nbytes)
+    rng = np.random.default_rng(sum(nbytes) + phits)
+    payloads = _u32(rng, (B, cap))
+    routes = np.array([[0, 255, 65534], [127, 0, 65535], [5, 200, 65533], [126, 1, 0],
+                       [64, 128, 65530]], np.int32)[:B]
+    levels = np.array([1, 2, 255, 0, 7], np.uint32)[:B]
+    got = tpack.frame_batch(_lanes(payloads), nbytes, routes, torch.from_numpy(
+        levels.astype(np.int64)), phits, adaptive)
+    hdr, data, _ = jframes.frame_parts_batch(
+        jnp.asarray(payloads), jnp.asarray(nbytes), jnp.asarray(routes),
+        list_level=jnp.asarray(levels), frame_phits=phits, adaptive=adaptive)
+    want = np.asarray(jpack.pack_frames_batch(hdr, data))
+    np.testing.assert_array_equal(lanes_u32(got), want)
+    assert got.shape == (B, -(-cap // (4 * phits)) + 1, 4 + 4 * phits)
+    # the seq wraps within the stream: seq0 = 65535 -> 65535, 0, 1, ...
+    seqs = frames.route_seq(got[1]).numpy()
+    assert list(seqs[:3]) == [65535, 0, 1]
+    assert bool(frames.verify_frames(got).all())
+
+
+@pytest.mark.parametrize("phits", [1, 2, 3, 4, 5, 16, 37, 500])
+def test_frame_batch_crc_tables_give_zlib(phits):
+    """The tables the frame_batch kernel reads, used as the kernel uses them
+    (zero-initialised CRC of 4 equal runs of phits, front-padded with zero
+    phits, joined pairwise by the shift tables, then ``crc_xor``), give
+    ``zlib.crc32`` of the frame's message."""
+    lanes = 4
+    blob, crc_xor = tpack.crc_tables(phits)
+    assert blob.shape == (3 * 1024,) and blob.dtype == np.uint32
+
+    def lookup4(t, x):
+        return int(t[x & 0xFF] ^ t[256 + ((x >> 8) & 0xFF)] ^ t[512 + ((x >> 16) & 0xFF)]
+                   ^ t[768 + (x >> 24)])
+
+    rng = np.random.default_rng(phits * 10 + lanes)
+    for _ in range(3):
+        words = _u32(rng, (3 + 4 * phits,))
+        phit_rows = [np.r_[np.uint32(0), words[:3]]] + list(words[3:].reshape(phits, 4))
+        S = (phits + lanes) // lanes
+        pad = lanes * S - (phits + 1)
+        crcs = []
+        for lane in range(lanes):
+            c = 0
+            for q in range(max(lane * S, pad), (lane + 1) * S):
+                for w in phit_rows[q - pad]:
+                    c = lookup4(blob, int(w) ^ c)
+            crcs.append(c)
+        for k in range(lanes.bit_length() - 1):
+            t, d = blob[1024 * (1 + k):1024 * (2 + k)], 1 << k
+            crcs = [lookup4(t, crcs[i]) ^ crcs[i + d] if i + d < lanes else crcs[i]
+                    for i in range(lanes)]
+        assert crcs[0] ^ crc_xor == zlib.crc32(words.tobytes())
+
+
+def test_frame_batch_rejects_bad_operands():
+    with pytest.raises(ValueError, match=r"\(B, Wcap\) int32"):
+        tpack.frame_batch(torch.zeros(2, 8, dtype=torch.int64), [1, 2], [[0, 1, 0]] * 2,
+                          1, 2)
+    with pytest.raises(ValueError, match="frame_phits"):
+        tpack.frame_batch(torch.zeros(2, 8, dtype=torch.int32), [1, 2], [[0, 1, 0]] * 2,
+                          1, 0)
+    meta = torch.zeros(2, 8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tpack.frame_batch(meta, [1, 2], [[0, 1, 0]] * 2, 1, 2)
+
+
+def test_frame_batch_cuda_tensor_never_takes_plain(monkeypatch):
+    """A CUDA tensor reaches the launch (which cannot allocate here) and
+    never the plain version."""
+    monkeypatch.setattr(tpack, "frame_batch_plain",
+                        lambda *a, **k: pytest.fail("plain version for a CUDA tensor"))
+    fake = mock.MagicMock(spec=torch.Tensor)
+    fake.dtype, fake.device, fake.shape, fake.is_cuda = (
+        torch.int32, torch.device("cuda", 0), (2, 8), True)
+    fake.dim.return_value = 2
+    with pytest.raises((RuntimeError, AssertionError)):  # no CUDA in this torch
+        tpack.frame_batch(fake, [1, 2], [[0, 1, 0]] * 2, 1, 2)
+
+
 def test_frame_kernel_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="pair up"):
         tpack.pack_frames_batch(torch.zeros(2, 3, dtype=torch.int32),
@@ -167,6 +285,9 @@ def test_frame_pack_recording_and_cpu_counts():
     with tpack.recording() as made:
         ops.encode_frames_batch(torch.zeros(2, 8, dtype=torch.int32), [4, 8],
                                 [[0, 1, 0], [1, 0, 0]], frame_phits=2)
+        tpack.frame_batch(torch.zeros(2, 8, dtype=torch.int32), [4, 8],
+                          [[0, 1, 0], [1, 0, 0]], [1, 1], 2)
+        frames.frame_stream(torch.zeros(8, dtype=torch.int32), 8, frame_phits=2)
         ops.encode_chunks_batch(torch.zeros(2, 3, dtype=torch.int32),
                                 torch.zeros(2, 4, dtype=torch.int32),
                                 torch.ones(2, dtype=torch.int32))
@@ -176,6 +297,7 @@ def test_frame_pack_recording_and_cpu_counts():
     assert made == [] and tpack.LAUNCHES == {"pack_run": 0,
                                              "stamp_headers": 0,
                                              "pack_frames_batch": 0,
+                                             "frame_batch": 0,
                                              "unpack_frames_batch": 0,
                                              "pack_chunks_batch": 0}
 

@@ -91,6 +91,39 @@ def test_plain_aligned_matches_pallas_interpret(wire_np, nbytes):
     np.testing.assert_array_equal(lanes_u32(got), want)
 
 
+@pytest.mark.parametrize("nlanes", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("base_w", [0, 1, 2, 3, 6])
+def test_plain_dense_run_matches_ref_and_pallas(wire_np, nlanes, base_w):
+    """Dense aligned runs (rows abut: stride == 4 * nlanes), the shape the
+    card copies in 16-byte vectors: a start word not a multiple of 4, row
+    counts whose words end mid-vector, the last lane masked."""
+    nbytes = 4 * nlanes - (nlanes > 1)  # a partial last lane when nlanes > 1
+    stride = 4 * nlanes
+    for count in (1, 7, 299):  # 7 rows of 3 lanes leave a 1-word tail
+        want = np.asarray(j_ref.unpack_run_ref(jnp.asarray(wire_np), 4 * base_w, stride,
+                                               count, nbytes))
+        got = pu.unpack_run_aligned(_t(wire_np), 4 * base_w, stride, count, nbytes)
+        np.testing.assert_array_equal(lanes_u32(got), want)
+    want = np.asarray(j_phit.unpack_run(jnp.asarray(wire_np), 4 * base_w, stride, 299,
+                                        nbytes, interpret=True))
+    np.testing.assert_array_equal(lanes_u32(got), want)
+
+
+@pytest.mark.parametrize("nlanes", [1, 3, 4])
+def test_plain_dense_run_reads_zeros_past_the_wire(wire_np, nlanes):
+    """A dense run that runs off the end of the wire reads zeros there, as
+    the reference does on its zero-padded wire."""
+    words = 37  # not a multiple of 4
+    base_w, count = 30, 5  # rows 3.. of 3 lanes lie past word 37
+    padded = np.concatenate([wire_np[:words], np.zeros(64, np.uint32)])
+    want = np.asarray(j_ref.unpack_run_ref(jnp.asarray(padded), 4 * base_w, 4 * nlanes,
+                                           count, 4 * nlanes))
+    got = pu.unpack_run_aligned(_t(wire_np[:words]), 4 * base_w, 4 * nlanes, count,
+                                4 * nlanes)
+    np.testing.assert_array_equal(lanes_u32(got), want)
+    assert (lanes_u32(got).reshape(-1)[words - base_w:] == 0).all()
+
+
 def test_plain_reads_zeros_past_the_wire(wire_np):
     """Past the wire the port reads zeros, as the padded Pallas wire does."""
     w = _t(wire_np[:3])  # 12 bytes
