@@ -45,10 +45,14 @@ What it does, in order (any failed check raises and the exit code is 1):
    logprobs=False``: the final wires must equal the batched plane's, every
    stream's ``on_token`` tokens in step order that sequence's output, the
    logprob stream's tokens the token stream's, and every logprob must be
-   finite and <= 0; the B7 launch counter must rise, and ``frame_batch``
+   finite and <= 0; every tick's lanes flush through
+   ``stream.flush_lanes``, and each call of it that ships anything must
+   be exactly one launch of B7's trimmed form (``chunk_bursts``; the
+   drain included) while the padded form never launches; ``frame_batch``
    must launch once per dispatched fabric tick.  Prints req/s, tok/s,
    TTFT per stream (p50, p95, max), fabric ticks, host ms per tick, the
-   ``poll()`` wait per tick, B7 launches and requests per shard.
+   ``poll()`` wait per tick, B7 launches per tick, the host ms per tick
+   spent in lane flushes and requests per shard.
 8. Frame kernels: ``frame_batch``, ``pack_frames_batch`` and
    ``unpack_frames_batch`` against their plain versions, bit for bit, at
    the calls phases 5-7 made (recorded by the wrappers: B5's join at
@@ -58,11 +62,14 @@ What it does, in order (any failed check raises and the exit code is 1):
    their times, bounds and plain and library times.  ``frame_batch``'s
    plain route is many calls (the structure pass, about a thousand eager
    ops, then ``torch.cat``); no one PyTorch call computes it.
-9. Fragment kernel: ``pack_chunks_batch`` (B7) against its plain version,
-   bit for bit, at the calls phase 7 made (recorded) and at two large
-   shapes (2**20 fragments x cap 64, one word each, and 2**19 x cap 32,
-   two words each, seeded counts 0..cap; masked, and the first unmasked
-   too), with its times, bound and plain and library times.
+9. Fragment kernels (run last, after phase 10): B7's two forms against
+   their plain versions, bit for bit, with their times, bounds and plain
+   and library times: the padded form ``pack_chunks_batch`` at the calls
+   phase 10 made (recorded) and at two large shapes (2**20 fragments x cap
+   64, one word each, and 2**19 x cap 32, two words each, seeded counts
+   0..cap; masked, and the first unmasked too); the trimmed form
+   ``chunk_bursts`` at the calls phase 7 made (recorded) and at 2**20 rows
+   of 64 words' capacity with seeded elem_words 1 or 2 per row.
 10. Device SER: the device-side SER entry points.  Phase 3's 16 request
    wires and its 16 answers (in their SW->HW layout, the one
    ``plan_from_wire`` reads; the served wires are HW->SW) are decoded on
@@ -76,10 +83,15 @@ What it does, in order (any failed check raises and the exit code is 1):
    records as a List, 500-phit frames of 16-byte phits) with its header
    words zeroed must come back from ``kernels.ops.write_headers`` (B8)
    byte for byte, and tables with a repeated and an overlapping word must
-   stamp as the serial stamp does.  Then B4 and B8 against their plain
-   versions, bit for bit, at those calls (recorded) and at large shapes
-   (B8: a 256 MiB wire and 2**20 headers), with their times, bounds and
-   plain and library times.
+   stamp as the serial stamp does.  Every burst that phase 7's lanes
+   shipped is packed again on the card by
+   ``core.stream_plans.encode_fragment_burst`` (B7's padded form, one
+   launch per burst) and must equal the host codec's bytes and the served
+   burst.  Then B4 and B8 against their plain versions, bit for bit, at
+   those calls (recorded) and at large shapes (B8: a 256 MiB wire and
+   2**20 headers, ordered as a framer writes them and then shuffled, one
+   launch per call), with their times, bounds and plain and library
+   times.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -87,6 +99,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import statistics
 import subprocess
@@ -125,6 +138,11 @@ from repro_torch.launch.steps import cached_serve_steps  # noqa: E402
 from repro_torch.models import init_params, param_count  # noqa: E402
 from repro_torch.models import prefill as model_prefill  # noqa: E402
 from repro_torch.obs.metrics import window_stats  # noqa: E402
+from repro_torch import stream as stream_pkg  # noqa: E402
+from repro_torch.stream import plane as stream_plane  # noqa: E402
+
+# the package's ``core`` exports a function named ``stream_plans`` too
+stream_plans = importlib.import_module("repro_torch.core.stream_plans")
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
@@ -147,6 +165,8 @@ KERNELS = {
                             fp.LAUNCHES),
     "pack_chunks_batch": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:118",
                           fp.pack_chunks_batch_plain, fp.pack_chunks_batch, fp.LAUNCHES),
+    "chunk_bursts": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:118",
+                     fp.chunk_bursts_plain, fp.chunk_bursts, fp.LAUNCHES),
     "pack_run": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:24",
                  fp.pack_run_plain, fp.pack_run, fp.LAUNCHES),
     "stamp_headers": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:68",
@@ -170,8 +190,10 @@ COST_REPS = 2000
 N_SHARDS = 3
 N_FRAMES_LARGE, FRAME_WORDS = 1 << 20, 64
 FRAME_STREAMS_LARGE = 1 << 16
-# the fragment kernel's large shapes (phase 9): (fragments, cap, elem_words)
+# the fragment kernel's large shapes (phase 9): (fragments, cap, elem_words);
+# the trimmed form's: rows, element words of capacity (elem_words 1 or 2)
 CHUNK_LARGE = ((1 << 20, 64, 1), (1 << 19, 32, 2))
+BURST_LARGE = (1 << 20, 64)
 # device SER (phase 10): encode_run's 256 MiB wires as (rows, nbytes, stride);
 # the framed stream carries phase 4's records as a List (hw2hw frames only
 # carry List data); B8's large shape: a 256 MiB wire and 2**20 headers
@@ -244,6 +266,14 @@ def call_bytes(kernel: str, wire: torch.Tensor, *args) -> int:
         else:
             live = rows * cap_w
         return 4 * (wire.numel() + counts.numel() + live + rows * (cap_w + 4))
+    if kernel == "chunk_bursts":
+        # meta, counts, elem_words and offsets read, the live element words
+        # read, the trimmed rows written
+        tokens, counts, elem_words, offsets, n_words = args
+        rows = counts.shape[0]
+        live = n_words - rows * 4
+        return 4 * (wire.numel() + counts.numel() + elem_words.numel() + live + n_words) \
+            + 8 * offsets.numel()
     args = tuple(args)
     if kernel == "unpack_gather":
         offsets, nbytes = args
@@ -776,7 +806,8 @@ def phase_sharded(dev, params, cfg, wires, base):
 
 def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool):
     """One streaming serve on a fresh default serve fabric; every check of
-    phase 7.  Returns its launches and the B7 calls it made (recorded)."""
+    phase 7.  Returns its launches, the kernel calls it made (recorded),
+    its numbers, and every (plan, chunks) -> burst its lanes shipped."""
     fab = serve.default_serve_fabric(N_SHARDS, device=dev)
     host_s = {"exchange_async": [], "poll": []}
     for name in host_s:
@@ -806,9 +837,27 @@ def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool):
         check(step == len(lps.setdefault((m, j), [])), f"logprobs {(m, j)}: step out of order")
         lps[(m, j)].append((int(tok), lp))
 
+    # lane flushes: host time and chunks shipped per call; the bursts packed
+    flush_s, shipped, bursts = [], [], []
+    flush_lanes, encode_bursts = stream_pkg.flush_lanes, stream_plane.encode_fragment_bursts
+
+    def timed_flush(lanes, force=False):
+        t = time.perf_counter()
+        n = flush_lanes(lanes, force)
+        flush_s.append(time.perf_counter() - t)
+        shipped.append(n)
+        return n
+
+    def noted_bursts(items, device=None):
+        out = encode_bursts(items, device)
+        bursts.extend((plan, list(chunks), b) for (plan, chunks), b in zip(items, out))
+        return out
+
     reset_launches()
     t0 = time.perf_counter()
-    with fp.recording() as made:
+    with fp.recording() as made, \
+            mock.patch.object(stream_pkg, "flush_lanes", timed_flush), \
+            mock.patch.object(stream_plane, "encode_fragment_bursts", noted_bursts):
         resp = serve.serve_requests_streaming(
             params, cfg, wires, max_new=MAX_NEW, pad_to=PAD_TO, slots=SLOTS, fabric=fab,
             overlap=overlap, logprobs=logprobs, on_token=on_token,
@@ -816,7 +865,11 @@ def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
-    check(launches["pack_chunks_batch"] >= 1, "streaming serve launched no pack_chunks_batch")
+    shipping = sum(1 for n in shipped if n)
+    check(launches["chunk_bursts"] == shipping >= 1,
+          f"streaming serve: {launches['chunk_bursts']} chunk_bursts launches for "
+          f"{shipping} lane flushes that shipped")
+    check(launches["pack_chunks_batch"] == 0, "streaming serve packed through the padded form")
     check(launches["frame_batch"] == fab.exchanges >= 1,
           f"streaming serve: {launches['frame_batch']} frame_batch launches for "
           f"{fab.exchanges} dispatched ticks")
@@ -843,7 +896,9 @@ def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool):
               "exchange_ms_tick": 1e3 * sum(host_s["exchange_async"]) / ticks,
               "fabric_ms_tick": 1e3 * fabric_s / ticks, "wall_ms_tick": 1e3 * dt / ticks,
               "poll_ms": 1e3 * sum(polls) / max(1, len(polls)), "polls": len(polls),
-              "b7": launches["pack_chunks_batch"], "per_shard": {s: placed.count(s) for s in shards}}
+              "b7": launches["chunk_bursts"], "b7_tick": launches["chunk_bursts"] / ticks,
+              "flush_ms_tick": 1e3 * sum(flush_s) / ticks, "flushes": len(flush_s),
+              "per_shard": {s: placed.count(s) for s in shards}}
     log(f"[stream] {label}: {len(wires)} requests, {n_out} tokens in {dt:.3f} s: "
         f"{result['req_s']:.3f} req/s, {result['tok_s']:.1f} tok/s; every wire == the "
         f"batched plane's, every stream == its sequence" + ("; logprobs == token stream, "
@@ -855,9 +910,13 @@ def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool):
         f"{result['fabric_ms_tick']:.3f} (exchange_async {result['exchange_ms_tick']:.3f}), "
         f"serve wall {result['wall_ms_tick']:.3f}; poll() "
         f"wait {result['poll_ms']:.3f} ms per call over {len(polls)} calls (max "
-        f"{1e3 * max(polls, default=0.0):.3f}); B7 launches {result['b7']}; launches "
-        f"{launches}")
-    return launches, made, result
+        f"{1e3 * max(polls, default=0.0):.3f}); launches {launches}")
+    log(f"[stream] {label}: lane flushes: {len(flush_s)} calls of flush_lanes ({shipping} "
+        f"shipped, the drain included), B7 chunk_bursts launches {result['b7']} "
+        f"({result['b7_tick']:.3f} per tick), padded-form launches 0; host ms per tick in "
+        f"lane flushes {result['flush_ms_tick']:.3f} (max per call "
+        f"{1e3 * max(flush_s, default=0.0):.3f})")
+    return launches, made, result, bursts
 
 
 def phase_streaming(dev, params, cfg, wires, base):
@@ -868,10 +927,11 @@ def phase_streaming(dev, params, cfg, wires, base):
     a, b = runs[0][2], runs[1][2]
     log(f"[stream] overlap on / off: wall {a['s']:.3f} / {b['s']:.3f} s; poll() wait per "
         f"tick {a['poll_ms']:.3f} / {b['poll_ms']:.3f} ms; fabric host ms per tick "
-        f"{a['fabric_ms_tick']:.3f} / {b['fabric_ms_tick']:.3f}")
-    calls = [args for r in runs for name, args in r[1] if name == "pack_chunks_batch"]
+        f"{a['fabric_ms_tick']:.3f} / {b['fabric_ms_tick']:.3f}; lane flushes host ms per "
+        f"tick {a['flush_ms_tick']:.3f} / {b['flush_ms_tick']:.3f}")
+    calls = [args for r in runs for name, args in r[1] if name == "chunk_bursts"]
     framing = [args for r in runs for name, args in r[1] if name == "frame_batch"]
-    return [r[0] for r in runs], calls, framing
+    return [r[0] for r in runs], calls, framing, [x for r in runs for x in r[3]]
 
 
 def library_chunks_ms(calls, reps: int) -> float:
@@ -890,38 +950,86 @@ def library_chunks_ms(calls, reps: int) -> float:
     return time_ms(lambda: [one(*a) for a in calls], reps)
 
 
-def phase_chunk_kernel(dev, calls):
-    """Phase 9: B7 == plain at the streaming serve's recorded calls and at
-    the two large shapes (masked; the first also unmasked)."""
-    check(len(calls) >= 1, "pack_chunks_batch: no call recorded on the streaming path")
-    name = "pack_chunks_batch"
-    m = measure(name, calls, reps=20)
-    m["library_ms"] = library_chunks_ms(calls, 20)
-    shapes = sorted({(tuple(a[1].shape), a[3]) for a in calls})
-    log(f"[kernels] {name}: {len(calls)} recorded calls, (tokens shape, elem_words) {shapes}")
+def library_bursts_ms(calls, reps: int) -> float:
+    """``torch.where``, ``torch.cat`` and ``index_select`` of the live words
+    (the column index and the live words' flat index are inputs): the
+    PyTorch calls that compute the trimmed rows, checked equal first."""
+    prep = []
+    for meta, toks, counts, ew, _, _ in calls:
+        cap_w = toks.shape[1]
+        col = torch.arange(cap_w + 4, device=toks.device)
+        live = counts * ew
+        keep = (col[None] < 3 + live) | (col[None] == cap_w + 3)
+        prep.append((col[None, :cap_w], torch.nonzero(keep.reshape(-1))[:, 0]))
+
+    def run_all():
+        return [torch.cat([m, torch.where(col < c * e, t, 0), c], -1).reshape(-1)
+                .index_select(0, idx) for (m, t, c, e, _, _), (col, idx) in zip(calls, prep)]
+
+    check(all(same(x, fp.chunk_bursts(*a)) for x, a in zip(run_all(), calls)),
+          "chunk_bursts: library calls differ")
+    return time_ms(run_all, reps)
+
+
+def burst_large(dev, g):
+    """BURST_LARGE rows of 64 element words' capacity, elem_words 1 or 2 per
+    row, seeded counts up to the capacity, and their prefix sum."""
+    rows, cap_w = BURST_LARGE
+    ew = torch.randint(1, 3, (rows, 1), dtype=torch.int32, device=dev, generator=g)
+    counts = (torch.rand((rows, 1), device=dev, generator=g) * (cap_w // ew + 1)).int()
+    meta = torch.randint(-2**31, 2**31, (rows, 3), dtype=torch.int32, device=dev, generator=g)
+    toks = torch.randint(-2**31, 2**31, (rows, cap_w), dtype=torch.int32, device=dev,
+                         generator=g)
+    lengths = (counts.long() * ew)[:, 0] + 4
+    return (meta, toks, counts, ew, torch.cumsum(lengths, 0) - lengths, int(lengths.sum()))
+
+
+def phase_chunk_kernel(dev, padded_calls, burst_calls):
+    """Phase 9: B7's padded form == plain at the calls phase 10 made and at
+    the two large shapes (masked; the first also unmasked), and its trimmed
+    form == plain at the streaming serves' calls and at BURST_LARGE."""
+    rows = {}
     g = torch.Generator(device=dev).manual_seed(13)
-    large = []
-    for n, cap, ew in CHUNK_LARGE:
-        meta = torch.randint(-2**31, 2**31, (n, 3), dtype=torch.int32, device=dev, generator=g)
-        toks = torch.randint(-2**31, 2**31, (n, cap * ew), dtype=torch.int32, device=dev,
-                             generator=g)
-        counts = torch.randint(0, cap + 1, (n, 1), dtype=torch.int32, device=dev, generator=g)
-        large.append((f"{n} x cap {cap} x {ew} words, masked", [(meta, toks, counts, ew)]))
-        if ew == 1:
-            large.append((f"{n} x cap {cap}, unmasked", [(meta, toks, counts, 0)]))
-    err = m["max_abs_err"]
-    for label, lc in [("main-path shapes", None)] + large:
-        r = m if lc is None else measure(name, lc, reps=20)
-        if lc is not None:
-            r["library_ms"] = library_chunks_ms(lc, 20)
-        err = max(err, r["max_abs_err"])
-        log(f"[kernels] {name:20s} {label:34s} kernel {r['ms']:.4f} ms  bound "
-            f"{r['bound_ms']:.4f} ms ({r['bytes']} B)  plain {r['plain_ms']:.4f} ms  "
-            f"where/cat {r['library_ms']:.4f} ms  max_abs_err {r['max_abs_err']}")
-    rows = {"main": m, "large": {"max_abs_err": err}}
-    del large
-    torch.cuda.empty_cache()
-    return {name: rows}
+    for name, calls, library, lib_label in (
+            ("pack_chunks_batch", padded_calls, library_chunks_ms, "where/cat"),
+            ("chunk_bursts", burst_calls, library_bursts_ms, "where/cat/index_select")):
+        where = "phase 10's re-encode" if name == "pack_chunks_batch" else "the streaming path"
+        check(len(calls) >= 1, f"{name}: no call recorded on {where}")
+        m = measure(name, calls, reps=20)
+        m["library_ms"] = library(calls, 20)
+        shapes = sorted({(tuple(a[1].shape), a[3] if name == "pack_chunks_batch" else "per row")
+                         for a in calls})
+        log(f"[kernels] {name}: {len(calls)} recorded calls of {where}, (tokens shape, "
+            f"elem_words) {shapes[:8]}" + (" ..." if len(shapes) > 8 else ""))
+        if name == "pack_chunks_batch":
+            large = []
+            for n, cap, ew in CHUNK_LARGE:
+                meta = torch.randint(-2**31, 2**31, (n, 3), dtype=torch.int32, device=dev,
+                                     generator=g)
+                toks = torch.randint(-2**31, 2**31, (n, cap * ew), dtype=torch.int32,
+                                     device=dev, generator=g)
+                counts = torch.randint(0, cap + 1, (n, 1), dtype=torch.int32, device=dev,
+                                       generator=g)
+                large.append((f"{n} x cap {cap} x {ew} words, masked",
+                              [(meta, toks, counts, ew)]))
+                if ew == 1:
+                    large.append((f"{n} x cap {cap}, unmasked", [(meta, toks, counts, 0)]))
+        else:
+            large = [(f"{BURST_LARGE[0]} x {BURST_LARGE[1]} words, ew 1|2",
+                      [burst_large(dev, g)])]
+        err = m["max_abs_err"]
+        for label, lc in [("main-path shapes", None)] + large:
+            r = m if lc is None else measure(name, lc, reps=20)
+            if lc is not None:
+                r["library_ms"] = library(lc, 20)
+            err = max(err, r["max_abs_err"])
+            log(f"[kernels] {name:17s} {label:34s} kernel {r['ms']:.4f} ms  bound "
+                f"{r['bound_ms']:.4f} ms ({r['bytes']} B)  plain {r['plain_ms']:.4f} ms  "
+                f"{lib_label} {r['library_ms']:.4f} ms  max_abs_err {r['max_abs_err']}")
+        rows[name] = {"main": m, "large": {"max_abs_err": err}}
+        del large
+        torch.cuda.empty_cache()
+    return rows
 
 
 def framed_stream(schema_json: dict, msg: dict):
@@ -1003,11 +1111,27 @@ def ser_round_trips(dev, wires, answers, rec_plan, rec_lanes, rec_wire):
     return len(wires) + len(answers) + 1
 
 
-def phase_device_ser(dev, wires, base, rec_plan, rec_lanes, rec_wire, recs):
+def reencode_bursts(dev, bursts) -> int:
+    """Every burst phase 7's lanes shipped, packed again on the card by
+    ``encode_fragment_burst`` (B7's padded form) and by the host codec
+    (``encode_fragment`` per fragment): both must be the served burst.
+    Returns the fragments re-encoded."""
+    n = 0
+    for plan, chunks, served in bursts:
+        host = b"".join(stream_plans.encode_fragment(plan, c.stream_id, c.step, c.tokens,
+                                                     c.eos) for c in chunks)
+        check(stream_plans.encode_fragment_burst(plan, chunks, dev) == host == served,
+              "encode_fragment_burst on the card != the host codec != the served burst")
+        n += len(chunks)
+    return n
+
+
+def phase_device_ser(dev, wires, base, rec_plan, rec_lanes, rec_wire, recs, bursts):
     """Phase 10: the device-side SER entry points on the card (the serve's
     wires, the record wire, encode_run at 256 MiB, write_headers on a framed
-    stream), then B4 and B8 == plain at those calls and at large shapes.
-    Returns the path's launches and the kernels' rows."""
+    stream, the streamed bursts through encode_fragment_burst), then B4 and
+    B8 == plain at those calls and at large shapes.  Returns the path's
+    launches, the kernels' rows and the padded B7 calls (recorded)."""
     answers = []
     for rw in base:  # the served answers, in the SW->HW layout plan_from_wire reads
         rid, outs = serve.decode_response(rw)
@@ -1045,16 +1169,22 @@ def phase_device_ser(dev, wires, base, rec_plan, rec_lanes, rec_wire, recs):
             got = ops.write_headers(zeroed, torch.from_numpy(rows).to(dev))
             check(np.array_equal(lanes_u32(got), serial_stamp(lanes_u32(zeroed), rows)),
                   f"write_headers with a {label} word != the serial stamp")
+        n_frags = reencode_bursts(dev, bursts)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
     for name in SER_KERNELS:
         check(launches[name] >= 1, f"device SER launched no {name}")
+    check(launches["stamp_headers"] == 3, "write_headers did not launch once a call")
+    check(launches["pack_chunks_batch"] == len(bursts) >= 1,
+          "encode_fragment_burst did not launch once a burst")
     log(f"[ser] {n_wires} wires ({len(wires)} requests, {len(answers)} answers, 1 of "
         f"{len(recs)} records) re-encoded byte for byte; encode_run -> decode_run == masked "
         f"tokens at {[(n, nb, stride) for n, nb, stride in PACK_LARGE]} (rows, bytes, pitch); "
         f"framed stream ({len(table)} headers) re-stamped byte for byte, repeated and "
-        f"overlapping words == serial stamp; {dt:.3f} s; launches {launches}")
+        f"overlapping words == serial stamp; {len(bursts)} streamed bursts ({n_frags} "
+        f"fragments) re-packed by encode_fragment_burst == host codec == served; {dt:.3f} s; "
+        f"launches {launches}")
 
     calls = {name: [a for k, a in made if k == name] for name in SER_KERNELS}
     for name in SER_KERNELS:
@@ -1072,7 +1202,9 @@ def phase_device_ser(dev, wires, base, rec_plan, rec_lanes, rec_wire, recs):
     # (kernel, label, calls, reps, with a library call); the first row of
     # each kernel is its main-path row: B4 at the serve wires' token runs,
     # B8 at the framed stream (the repeated and overlapping tables have no
-    # library route: index_put_ needs distinct words)
+    # library route: index_put_ needs distinct words).  B8's large table is
+    # ordered, as a framer writes it; shuffled, the kernel takes its owner
+    # pass
     cases = [("pack_run", "main-path shapes (serve runs)", calls["pack_run"][:-len(PACK_LARGE)],
               50, True)]
     cases += [("pack_run", f"{a[0].shape[0]} rows x {a[2]} B at {a[1]}", [a], 20, True)
@@ -1082,7 +1214,10 @@ def phase_device_ser(dev, wires, base, rec_plan, rec_lanes, rec_wire, recs):
               ("stamp_headers", "repeated and overlapping words", calls["stamp_headers"][1:],
                200, False),
               ("stamp_headers", f"{STAMP_LARGE_WORDS} words, {STAMP_LARGE_HEADERS} headers",
-               [(big_w, big_h)], 20, True)]
+               [(big_w, big_h)], 20, True),
+              ("stamp_headers", "the same table shuffled (owner pass)",
+               [(big_w, big_h[torch.randperm(STAMP_LARGE_HEADERS, device=dev,
+                                             generator=g)])], 20, True)]
     rows = {}
     for name, label, lc, reps, with_library in cases:
         r = measure(name, lc, reps)
@@ -1095,9 +1230,10 @@ def phase_device_ser(dev, wires, base, rec_plan, rec_lanes, rec_wire, recs):
         log(f"[kernels] {name:14s} {label:34s} kernel {r['ms']:.4f} ms  bound "
             f"{r['bound_ms']:.4f} ms ({r['bytes']} B)  plain {r['plain_ms']:.4f} ms  "
             f"{SER_LIBRARY[name]} {lib}  max_abs_err {r['max_abs_err']}")
+    padded = [a for k, a in made if k == "pack_chunks_batch"]
     del big, big_w, big_h, calls, made
     torch.cuda.empty_cache()
-    return launches, rows
+    return launches, rows, padded
 
 
 SER_LIBRARY = {"pack_run": "F.pad(tokens & mask)", "stamp_headers": "clone + index_put_"}
@@ -1161,17 +1297,17 @@ def main() -> int:
                      fabric_launches]
     sharded_launches, recorded = phase_sharded(dev, params, cfg, wires, base)
     path_launches += sharded_launches
-    streaming_launches, chunk_calls, stream_framing = phase_streaming(dev, params, cfg, wires,
-                                                                      base)
+    streaming_launches, burst_calls, stream_framing, bursts = phase_streaming(
+        dev, params, cfg, wires, base)
     path_launches += streaming_launches
     del params
     torch.cuda.empty_cache()
     rows.update(phase_frame_kernels(dev, recorded, stream_framing, joins))
-    rows.update(phase_chunk_kernel(dev, chunk_calls))
-    ser_launches, ser_rows = phase_device_ser(dev, wires, base, rec_plan, rec_lanes, rec_wire,
-                                              recs)
+    ser_launches, ser_rows, padded_calls = phase_device_ser(dev, wires, base, rec_plan,
+                                                            rec_lanes, rec_wire, recs, bursts)
     path_launches.append(ser_launches)
     rows.update(ser_rows)
+    rows.update(phase_chunk_kernel(dev, padded_calls, burst_calls))
 
     records = []
     for name, (source, replaces, _, _, _) in KERNELS.items():

@@ -9,7 +9,8 @@ on the card (``kernels.ops.encode_chunks_batch``, the B7 CUDA kernel).
 
 Copy of ``repro.core.stream_plans`` (numpy over ``idl`` and
 ``schema_tree``); only :func:`encode_fragment_burst` differs: it packs on a
-torch device.
+torch device.  :func:`encode_fragment_bursts` is the port's own: the
+bursts of several lanes in one launch of B7's trimmed form.
 
 Wire format of one fragment (all little-endian u32 words)::
 
@@ -322,39 +323,13 @@ def encode_fragment(
     return words.tobytes()
 
 
-def encode_fragment_burst(
-    plan: StreamPlan, fragments: Sequence, device: DeviceLike = None
-) -> bytes:
-    """Encode a burst of fragments through the batched pack kernel.
-
-    Accepts anything with ``stream_id``/``step``/``tokens``/``eos``
-    attributes (:class:`Fragment`, ``stream.chunks.TokenChunk``).  The
-    burst's meta, element-word and count arrays go to ``device`` (default:
-    the card) in ONE host-to-device copy, ``kernels.ops.encode_chunks_batch``
-    packs one row per fragment in one launch (the plan's ``elem_words`` as
-    the element width, the tail mask fused in), and one copy brings the
-    rows back; they are trimmed to the exact wire bytes and concatenated in
-    order.  Rows are as wide as the burst's largest fragment: the
-    reference's power-of-two bucketing of both axes existed for JAX's jit
-    cache and changes no byte.
-    """
-    from ..kernels.ops import encode_chunks_batch
-
-    if not fragments:
-        return b""
-    dev = default_device(device)
-    counts = [len(f.tokens) for f in fragments]
-    b = len(fragments)
+def _fill_rows(plan: StreamPlan, fragments: Sequence, counts: Sequence[int],
+               meta: np.ndarray, toks: np.ndarray, cnts: np.ndarray) -> None:
+    """Validate each fragment (meta budgets, ``MAX_CHUNK_TOKENS``) and write
+    its row: ``meta`` ``(b, 3)``, element words ``toks`` ``(b, capW)`` (left
+    aligned, the rest untouched) and ``cnts`` ``(b,)``, all u32."""
     elem_words = plan.elem_words
     one_word = plan.n_leaves == 1 and elem_words == 1
-    cap_w = max(1, max(counts)) * elem_words
-    # one host buffer [meta (b, 3) | element words (b, cap_w) | counts (b,)]
-    # so the burst crosses to the device in a single copy
-    n_meta, n_toks = b * CHUNK_META_WORDS, b * cap_w
-    flat = np.zeros(n_meta + n_toks + b, dtype=np.uint32)
-    meta = flat[:n_meta].reshape(b, CHUNK_META_WORDS)
-    toks = flat[n_meta:n_meta + n_toks].reshape(b, cap_w)
-    cnts = flat[n_meta + n_toks:]
     # inline guard over the same bounds :func:`fragment_meta_error`
     # checks (which stays the single source of the failure message) —
     # a per-fragment call would dominate small-burst encode time
@@ -384,6 +359,42 @@ def encode_fragment_burst(
                     plan, f.tokens
                 ).reshape(-1)
         cnts[i] = n
+
+
+def encode_fragment_burst(
+    plan: StreamPlan, fragments: Sequence, device: DeviceLike = None
+) -> bytes:
+    """Encode a burst of fragments through the batched pack kernel.
+
+    Accepts anything with ``stream_id``/``step``/``tokens``/``eos``
+    attributes (:class:`Fragment`, ``stream.chunks.TokenChunk``).  The
+    burst's meta, element-word and count arrays go to ``device`` (default:
+    the card) in ONE host-to-device copy, ``kernels.ops.encode_chunks_batch``
+    packs one row per fragment in one launch (the plan's ``elem_words`` as
+    the element width, the tail mask fused in), and one copy brings the
+    rows back; they are trimmed to the exact wire bytes and concatenated in
+    order.  Rows are as wide as the burst's largest fragment: the
+    reference's power-of-two bucketing of both axes existed for JAX's jit
+    cache and changes no byte.  :func:`encode_fragment_bursts` packs the
+    bursts of several lanes in one launch.
+    """
+    from ..kernels.ops import encode_chunks_batch
+
+    if not fragments:
+        return b""
+    dev = default_device(device)
+    counts = [len(f.tokens) for f in fragments]
+    b = len(fragments)
+    elem_words = plan.elem_words
+    cap_w = max(1, max(counts)) * elem_words
+    # one host buffer [meta (b, 3) | element words (b, cap_w) | counts (b,)]
+    # so the burst crosses to the device in a single copy
+    n_meta, n_toks = b * CHUNK_META_WORDS, b * cap_w
+    flat = np.zeros(n_meta + n_toks + b, dtype=np.uint32)
+    _fill_rows(plan, fragments, counts,
+               flat[:n_meta].reshape(b, CHUNK_META_WORDS),
+               flat[n_meta:n_meta + n_toks].reshape(b, cap_w),
+               flat[n_meta + n_toks:])
     lanes = torch.from_numpy(flat.view(np.int32)).to(dev)
     rows = encode_chunks_batch(
         lanes[:n_meta].view(b, CHUNK_META_WORDS),
@@ -398,6 +409,58 @@ def encode_fragment_burst(
         out.append(rows[i, :nw].tobytes())
         out.append(rows[i, -1:].tobytes())
     return b"".join(out)
+
+
+def encode_fragment_bursts(
+    items: Sequence[Tuple[StreamPlan, Sequence]], device: DeviceLike = None
+) -> List[bytes]:
+    """Encode several bursts, each ``(plan, fragments)`` (for example the
+    lanes of one streaming tick, token and logprob plans mixed), in one
+    launch; returns each item's burst, bytes for bytes
+    :func:`encode_fragment_burst`'s (``b""`` for an item with no fragment).
+
+    Every fragment is validated before anything is packed.  Then one host
+    buffer ``[row offsets (int64) | meta | counts | elem_words | element
+    words]`` crosses to ``device`` (default: the card) in one copy,
+    ``kernels.ops.encode_chunks_trimmed`` writes every row trimmed to its
+    live words at its offset (one launch, ``elem_words`` per row), one
+    copy brings back exactly those words, and each burst is a slice of
+    them: the items' rows are consecutive.
+    """
+    from ..kernels.ops import encode_chunks_trimmed
+
+    counts = [[len(f.tokens) for f in frags] for _, frags in items]
+    sizes = [len(c) for c in counts]
+    r = sum(sizes)
+    if not r:
+        return [b""] * len(items)
+    dev = default_device(device)
+    ew = np.repeat([plan.elem_words for plan, _ in items], sizes).astype(np.int64)
+    live = np.concatenate([np.asarray(c, np.int64) for c in counts if c]) * ew
+    cap_w = max(1, int(live.max()))
+    ends = np.cumsum(live + CHUNK_META_WORDS + 1)
+    # one host buffer, int64 row offsets first (so their view stays aligned)
+    o_meta, o_cnt = 2 * r, 2 * r + r * CHUNK_META_WORDS
+    o_ew, o_tok = o_cnt + r, o_cnt + 2 * r
+    flat = np.zeros(o_tok + r * cap_w, dtype=np.uint32)
+    flat[:o_meta].view(np.int64)[1:] = ends[:-1]
+    meta = flat[o_meta:o_cnt].reshape(r, CHUNK_META_WORDS)
+    toks = flat[o_tok:].reshape(r, cap_w)
+    row = 0
+    for (plan, frags), c in zip(items, counts):
+        _fill_rows(plan, frags, c, meta[row:row + len(c)], toks[row:row + len(c)],
+                   flat[o_cnt + row:o_cnt + row + len(c)])
+        row += len(c)
+    flat[o_ew:o_tok] = ew
+    lanes = torch.from_numpy(flat.view(np.int32)).to(dev)
+    words = encode_chunks_trimmed(
+        lanes[o_meta:o_cnt].view(r, CHUNK_META_WORDS), lanes[o_tok:].view(r, cap_w),
+        lanes[o_cnt:o_ew], lanes[o_ew:o_tok], lanes[:o_meta].view(torch.int64),
+        int(ends[-1]),
+    )
+    data = words.cpu().numpy().tobytes()
+    cut = np.concatenate([[0], ends])[np.cumsum([0] + sizes)] * 4
+    return [data[a:b] for a, b in zip(cut[:-1].tolist(), cut[1:].tolist())]
 
 
 def decode_fragments(

@@ -1,7 +1,7 @@
 // Routed-fabric frame assembly, RX split, stream-fragment assembly, the SER
 // payload run and HW-to-HW header stamping on Hopper (sm_90a).
 //
-// Six entry points.  Each replaces a Pallas body of the reference
+// Seven entry points.  Each replaces a Pallas body of the reference
 // src/repro/kernels/frame_pack.py:
 //
 //   hgum_pack_run             <- _pack_kernel_aligned (frame_pack.py:24),
@@ -19,6 +19,8 @@
 //                                called from pack_chunks_batch (:125), with
 //                                the tail mask of the reference
 //                                kernels/ops.py:encode_chunks_batch fused in
+//   hgum_chunk_bursts         <- the same, each row trimmed to its live
+//                                words at an offset, for many lanes at once
 //
 // Frame build and join (B5).  A frame is one row of `width = 4 +
 // frame_words` u32 words: the header phit [size | level | crc32 | route]
@@ -77,24 +79,43 @@
 // contiguous arrays whose boundary moves by 4 words per row).
 
 // Stream fragments (B7).  The streaming plane serializes every decode
-// tick's token and logprob fragments of one lane into one burst.  A
+// tick's token and logprob fragments into bursts, one per lane.  A
 // fragment is one row of `width = cap_w + 4` words:
 //   [stream_id | step | flags | cap_w element words | count]
-// with the element count AFTER the elements (paper section IV-B).  For word
-// c of row r:
-//   c < 3          -> meta[r, c]
-//   c == width - 1 -> counts[r]
-//   otherwise      -> tokens[r, c - 3] if (c - 3) < counts[r] * elem_words
-//                     (u32 product, as the reference computes it), else 0
-// elem_words == 0 turns the mask off: the row is then exactly the Pallas
-// body's concatenation of pre-masked tokens.  The TPU kernel padded the
-// rows to blocks of 8 and sliced them off again; here the grid is flat
-// over the output words and needs no padding.  Bound: bytes, like B5 (the
-// bound counts a masked word as not read; the kernel reads it anyway, see
-// below).  Rows of cap_w + 4 words are rarely a
-// multiple of 16 bytes, so the accesses are 4 bytes wide, coalesced on the
-// output side.
-//
+// with the element count AFTER the elements (paper section IV-B).  Word c
+// of row r is meta[r, c] for c < 3, counts[r] for the last word, and
+// tokens[r, c - 3] where c - 3 < live = counts[r] * elem_words (a u32
+// product, as the reference computes it), else 0.  One kernel body, two
+// instances (template parameter kTrim):
+//   * hgum_pack_chunks_batch (padded): the reference's rows, width words
+//     each at r * width; elem_words == 0 turns the mask off (the Pallas
+//     body's concatenation of pre-masked tokens).  The TPU kernel padded
+//     the rows to blocks of 8 and sliced them off again; nothing is padded
+//     here.
+//   * hgum_chunk_bursts (trimmed): row r is exactly [meta | live words |
+//     count], live = min(counts[r] * elem_words[r], cap_w) with elem_words
+//     given per row (1 for the token plan, 2 for the logprob plan), written
+//     from word offsets[r] of one flat output.  The host computes the
+//     offsets as an int64 prefix sum of the row lengths, so the rows of
+//     every lane of a tick abut and each lane's burst is a slice; one
+//     launch serves them all where one launch per lane served before.  No
+//     word outside [0, n_words) is written whatever the offsets.
+// Layout: a group of g = 2**group_shift lanes owns a row, so small rows
+// share a warp; groups stride over the rows.  Index math inside a row is
+// 32-bit and has no division: lane j of the group takes words j, j + g,
+// ... and loads U of them before it stores any (loads in flight, coalesced
+// along the row).  g is the smallest power of two with 2 U g >= width (at
+// most 32): a full row takes two steps of U loads a lane.  U is 4 for the
+// padded rows and 2 for the trimmed ones, whose live words are on average
+// about half the width; of six layouts tried on an H100 at 2**20 rows of
+// 64 words (g from 8 to 32, U from 2 to 8), these were the fastest for
+// each form.  The count, elem_words and offset of the
+// group's next row are loaded one row ahead, so a row's token loads do not
+// wait on its count.  Rows start at any word, so stores are 4 bytes wide
+// (coalesced; a 16-byte store would need the row start aligned).  Bound:
+// bytes (meta, counts, per-row elem_words and offsets read, the live
+// element words read, the rows written).
+
 // SER payload run (B4).  N tokens of nlanes u32 lanes go into the wire at a
 // pitch of stride_w words: for word c of row r,
 //   out[r * stride_w + c] = c < nlanes ? tok[r, c] & lane_mask(c) : 0
@@ -110,26 +131,48 @@
 // `word + 1`; slots outside [0, W) are dropped.  The Pallas body is one grid
 // step with a serial loop over the headers, so where the slots of two
 // headers meet (a repeated or an overlapping word) the LAST header wins.  A
-// parallel stamp would race there.  Of the two simple orders that keep the
-// reference's result -- a serial stamp after a parallel copy, or an owner
-// pass -- this is the owner pass, because it keeps the stamp parallel
-// (thousands of headers per stream) and needs no sort:
-//   1. copy the wire to the output, and set owner[slot] = -1 for every slot
-//      that a header writes (scratch of W words, only those slots touched);
-//   2. owner[slot] = atomicMax over the indices of the headers that write it;
-//   3. each header writes its two slots where it is the owner.
+// parallel stamp would race there.  One persistent cooperative launch
+// (cudaLaunchCooperativeKernel, a grid that the card holds at once:
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs, at most four
+// blocks of 256 per SM) runs grid-stride phases with a grid sync between
+// them:
+//   1. copy the wire to the output, and look for two neighbouring headers
+//      whose words are not increasing by at least 2;
+//   2. (after two syncs, which publish that finding in a flag word) if
+//      there are none, no two slots meet: every header writes its slots.
+//      A framer writes its headers in stream order, so its tables take
+//      this path;
+//   otherwise an owner pass decides each slot:
+//   2'. set owner[slot] = -1 for every slot that a header writes (a scratch
+//      of W words from the caching allocator: only those slots are touched,
+//      none is initialised);
+//   3'. owner[slot] = atomicMax over the indices of the headers that write it;
+//   4'. each header writes its two slots where it is the owner.
 // Two slots of one header never meet, so the header index orders them fully.
-// Stream order separates the three launches.  Bound: bytes (the wire read
-// once and written once, the header table read once); the owner scratch adds
-// 12 bytes per header slot.
-//
-// Interface: plain C, pointers and the stream as void*, 64-bit sizes.  Each
-// entry returns cudaGetLastError() after its launches; they are
-// asynchronous on the given stream and allocate nothing (B8's owner
-// scratch comes from the caller).
+// Three launches each cost the host a launch and lost to clone() +
+// index_put_ at the framed stream; the owner pass alone at 2**21 scattered
+// slots of a 256 MiB wire cost about as much as the copy (PERF.md), since
+// every 4-byte scatter is a read-modify-write of a 32-byte sector, which
+// is why ordered tables skip it.  The copy moves 16-byte vectors, four in
+// flight per thread, where both wire and output are 16-byte aligned, and
+// single words otherwise (a wire view); the later phases cost work in
+// proportion to the 2H header writes, not to the wire, and are skipped,
+// syncs included, when H = 0.  The owner pass was chosen over blocks that
+// own slot ranges because those need the table sorted, or each block to
+// scan all H headers.  Bound: bytes (the wire read once and written once,
+// the header table read once).  A launch that the card refuses returns its
+// error: there is no fallback to separate launches.
 
+// Interface: plain C, pointers and the stream as void*, 64-bit sizes.  Each
+// entry returns the launch's error (cudaGetLastError(), or the cooperative
+// launch's return); launches are asynchronous on the given stream and
+// allocate nothing (B8's owner scratch comes from the caller).
+
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -288,31 +331,87 @@ __global__ void unpack_frames_kernel(const uint32_t* __restrict__ frames,
   }
 }
 
-__global__ void pack_chunks_kernel(const uint32_t* __restrict__ meta,
-                                   const uint32_t* __restrict__ tokens,
-                                   const uint32_t* __restrict__ counts,
-                                   uint32_t* __restrict__ out, int64_t total, int cap_w,
-                                   uint32_t elem_words) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int width = cap_w + kChunkMetaWords + 1;
-  const int64_t row = i / width;
-  const int c = static_cast<int>(i - row * width);
-  uint32_t v;
-  if (c < kChunkMetaWords) {
-    v = __ldg(meta + row * kChunkMetaWords + c);
-  } else if (c == width - 1) {
-    v = __ldg(counts + row);
-  } else {
-    // both loads are issued before the mask is known: a token load that
-    // waits on the count load halves the loads in flight (measured on
-    // H100 at 2**20 x 64: 0.38 ms dependent against 0.30 ms unmasked)
-    const uint32_t e = static_cast<uint32_t>(c - kChunkMetaWords);
-    const uint32_t n = __ldg(counts + row);
-    const uint32_t t = __ldg(tokens + row * cap_w + e);
-    v = (elem_words == 0 || e < n * elem_words) ? t : 0u;
+// Everything a fragment launch reads; unused pointers are null.
+struct ChunkArgs {
+  const uint32_t* meta;        // (rows, 3)
+  const uint32_t* tokens;      // (rows, cap_w)
+  const uint32_t* counts;      // (rows,)
+  const uint32_t* elem_words;  // trimmed: (rows,)
+  const long long* offsets;    // trimmed: (rows,) first word of each row
+  uint32_t* out;               // padded: (rows, cap_w + 4); trimmed: (n_words,)
+  long long n_words;           // trimmed: words of out
+  uint32_t rows;
+  uint32_t cap_w;
+  uint32_t mask_words;         // padded: the mask's elem_words (0: no mask)
+  uint32_t group_shift;        // log2 of the lanes per row
+};
+
+constexpr int kChunkUnroll = 4;  // words a lane loads before it stores (copy, padded rows)
+constexpr int kTrimUnroll = 2;   // the same, trimmed rows
+
+template <bool kTrim>
+__host__ __device__ constexpr int chunk_unroll() {
+  return kTrim ? kTrimUnroll : kChunkUnroll;
+}
+
+template <bool kTrim>
+__global__ void __launch_bounds__(kThreads) chunk_kernel(const ChunkArgs a) {
+  const uint32_t g = 1u << a.group_shift;
+  const uint32_t j = threadIdx.x & (g - 1);
+  const size_t groups = (static_cast<size_t>(gridDim.x) * blockDim.x) >> a.group_shift;
+  size_t r = (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> a.group_shift;
+  // the row's count, elem_words and offset, loaded one row ahead
+  uint32_t n_next = 0, ew_next = a.mask_words;
+  long long off_next = 0;
+  if (r < a.rows) {
+    n_next = __ldg(a.counts + r);
+    if (kTrim) {
+      ew_next = __ldg(a.elem_words + r);
+      off_next = __ldg(a.offsets + r);
+    }
   }
-  out[i] = v;
+  for (; r < a.rows; r += groups) {
+    const uint32_t n = n_next, ew = ew_next;
+    const long long off = off_next;
+    if (r + groups < a.rows) {
+      n_next = __ldg(a.counts + r + groups);
+      if (kTrim) {
+        ew_next = __ldg(a.elem_words + r + groups);
+        off_next = __ldg(a.offsets + r + groups);
+      }
+    }
+    const uint32_t live = (kTrim || ew != 0) ? min(n * ew, a.cap_w) : a.cap_w;
+    const uint32_t len = (kTrim ? live : a.cap_w) + kChunkMetaWords + 1;
+    const uint32_t* __restrict__ meta = a.meta + kChunkMetaWords * r;
+    const uint32_t* __restrict__ src = a.tokens + a.cap_w * r;
+    constexpr int U = chunk_unroll<kTrim>();
+    for (uint32_t c0 = 0; c0 < len; c0 += U * g) {
+      uint32_t v[U];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const uint32_t c = c0 + k * g + j;
+        v[k] = 0u;
+        if (c < kChunkMetaWords) {
+          v[k] = __ldg(meta + c);
+        } else if (c == len - 1) {
+          v[k] = n;
+        } else if (c < len && c - kChunkMetaWords < live) {
+          v[k] = __ldg(src + (c - kChunkMetaWords));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const uint32_t c = c0 + k * g + j;
+        if (c >= len) break;
+        if (kTrim) {
+          const long long w = off + c;
+          if (w >= 0 && w < a.n_words) a.out[w] = v[k];
+        } else {
+          a.out[(a.cap_w + kChunkMetaWords + 1) * r + c] = v[k];
+        }
+      }
+    }
+  }
 }
 
 __global__ void pack_run_kernel(const uint32_t* __restrict__ tok,
@@ -333,42 +432,90 @@ __global__ void pack_run_kernel(const uint32_t* __restrict__ tok,
 
 // slot that header write k (= 2 * header + {0: size, 1: level}) targets, or
 // -1 where it falls outside the wire
-__device__ __forceinline__ int64_t stamp_slot(const int32_t* __restrict__ hdr, int64_t k,
-                                              int64_t n_words) {
-  const int64_t s = static_cast<int64_t>(__ldg(hdr + 3 * (k >> 1))) + (k & 1);
+__device__ __forceinline__ long long stamp_slot(const int32_t* __restrict__ hdr, long long k,
+                                                long long n_words) {
+  const long long s = static_cast<long long>(__ldg(hdr + 3 * (k >> 1))) + (k & 1);
   return (s >= 0 && s < n_words) ? s : -1;
 }
 
-__global__ void stamp_copy_kernel(const uint32_t* __restrict__ wire,
-                                  const int32_t* __restrict__ hdr,
-                                  uint32_t* __restrict__ out, int32_t* __restrict__ owner,
-                                  int64_t n_words, int64_t n_writes) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n_words) out[i] = __ldg(wire + i);
-  if (i < n_writes) {
-    const int64_t s = stamp_slot(hdr, i, n_words);
-    if (s >= 0) owner[s] = -1;
+struct StampArgs {
+  const uint32_t* wire;  // (n_words,)
+  const int32_t* hdr;    // (n_writes / 2, 3)
+  int32_t* owner;        // (n_words + 1,) scratch, uninitialised; the last
+                         // word is the flag "two headers' slots may meet"
+  uint32_t* out;         // (n_words,)
+  long long n_words;
+  long long n_writes;    // 2 * headers
+  int vec;               // wire and out are 16-byte aligned
+};
+
+// Copy n elements of T, grid-stride, kChunkUnroll loads in flight per thread.
+template <typename T>
+__device__ __forceinline__ void grid_copy(const T* __restrict__ src, T* __restrict__ dst,
+                                          long long n, long long tid, long long stride) {
+  long long i = tid;
+  for (; i + (kChunkUnroll - 1) * stride < n; i += kChunkUnroll * stride) {
+    T v[kChunkUnroll];
+#pragma unroll
+    for (int k = 0; k < kChunkUnroll; ++k) v[k] = __ldg(src + i + k * stride);
+#pragma unroll
+    for (int k = 0; k < kChunkUnroll; ++k) dst[i + k * stride] = v[k];
   }
+  for (; i < n; i += stride) dst[i] = __ldg(src + i);
 }
 
-__global__ void stamp_owner_kernel(const int32_t* __restrict__ hdr, int32_t* owner,
-                                   int64_t n_words, int64_t n_writes) {
-  const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (k >= n_writes) return;
-  const int64_t s = stamp_slot(hdr, k, n_words);
-  if (s >= 0) atomicMax(owner + s, static_cast<int>(k >> 1));
-}
-
-__global__ void stamp_write_kernel(const int32_t* __restrict__ hdr,
-                                   const int32_t* __restrict__ owner,
-                                   uint32_t* __restrict__ out, int64_t n_words,
-                                   int64_t n_writes) {
-  const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (k >= n_writes) return;
-  const int64_t s = stamp_slot(hdr, k, n_words);
-  const int64_t h = k >> 1;
-  if (s >= 0 && owner[s] == static_cast<int>(h)) {
-    out[s] = static_cast<uint32_t>(__ldg(hdr + 3 * h + 1 + (k & 1)));
+__global__ void __launch_bounds__(kThreads) stamp_kernel(const StampArgs a) {
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  // phase 1: the copy, and neighbouring headers whose slots may meet
+  if (a.vec) {
+    const long long n_vec = a.n_words >> 2;
+    grid_copy(reinterpret_cast<const uint4*>(a.wire), reinterpret_cast<uint4*>(a.out), n_vec,
+              tid, stride);
+    for (long long w = 4 * n_vec + tid; w < a.n_words; w += stride) a.out[w] = __ldg(a.wire + w);
+  } else {
+    grid_copy(a.wire, a.out, a.n_words, tid, stride);
+  }
+  if (a.n_writes == 0) return;  // the same for every thread: no sync is left waiting
+  const long long n_headers = a.n_writes >> 1;
+  bool meet = false;
+  for (long long h = tid; h + 1 < n_headers; h += stride) {
+    const long long w0 = __ldg(a.hdr + 3 * h), w1 = __ldg(a.hdr + 3 * (h + 1));
+    meet |= w1 < w0 + 2;
+  }
+  int32_t* flag = a.owner + a.n_words;
+  if (tid == 0) *flag = 0;
+  cg::grid_group grid = cg::this_grid();
+  grid.sync();
+  if (meet) *flag = 1;
+  grid.sync();
+  if (__ldcg(flag) == 0) {
+    // phase 2: every slot has one header at most
+    for (long long k = tid; k < a.n_writes; k += stride) {
+      const long long s = stamp_slot(a.hdr, k, a.n_words);
+      if (s >= 0) a.out[s] = static_cast<uint32_t>(__ldg(a.hdr + 3 * (k >> 1) + 1 + (k & 1)));
+    }
+    return;
+  }
+  // phase 2': the owner of every slot a header writes reset
+  for (long long k = tid; k < a.n_writes; k += stride) {
+    const long long s = stamp_slot(a.hdr, k, a.n_words);
+    if (s >= 0) a.owner[s] = -1;
+  }
+  grid.sync();
+  // phase 3': the last header that writes a slot owns it
+  for (long long k = tid; k < a.n_writes; k += stride) {
+    const long long s = stamp_slot(a.hdr, k, a.n_words);
+    if (s >= 0) atomicMax(a.owner + s, static_cast<int>(k >> 1));
+  }
+  grid.sync();
+  // phase 4': each owner stamps its slot (the owner read bypasses L1)
+  for (long long k = tid; k < a.n_writes; k += stride) {
+    const long long s = stamp_slot(a.hdr, k, a.n_words);
+    const long long h = k >> 1;
+    if (s >= 0 && __ldcg(a.owner + s) == static_cast<int>(h)) {
+      a.out[s] = static_cast<uint32_t>(__ldg(a.hdr + 3 * h + 1 + (k & 1)));
+    }
   }
 }
 
@@ -376,9 +523,7 @@ inline unsigned int n_blocks(int64_t total) {
   return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
 }
 
-// Blocks for a frame launch of `frames`, `per_warp` frames to a warp: one
-// warp's share each, at most eight blocks per SM (the kernel strides).
-inline unsigned int frame_blocks(int64_t frames, int per_warp) {
+inline int sm_count() {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -386,9 +531,31 @@ inline unsigned int frame_blocks(int64_t frames, int per_warp) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (sms <= 0) sms = 132;
   }
+  return sms;
+}
+
+// Blocks for a frame launch of `frames`, `per_warp` frames to a warp: one
+// warp's share each, at most eight blocks per SM (the kernel strides).
+inline unsigned int frame_blocks(int64_t frames, int per_warp) {
   const int64_t per_block = static_cast<int64_t>(per_warp) * (kThreads / 32);
   const int64_t need = (frames + per_block - 1) / per_block;
-  return static_cast<unsigned int>(need < 8LL * sms ? need : 8LL * sms);
+  return static_cast<unsigned int>(need < 8LL * sm_count() ? need : 8LL * sm_count());
+}
+
+// log2 of the lanes a fragment row of `width` words takes: the smallest
+// power of two g with 2 * unroll * g >= width, at most a warp
+inline uint32_t chunk_group_shift(int64_t width, int unroll) {
+  uint32_t shift = 0;
+  while (shift < 5 && (2LL * unroll << shift) < width) ++shift;
+  return shift;
+}
+
+template <bool kTrim>
+int launch_chunks(ChunkArgs a, void* stream) {
+  a.group_shift = chunk_group_shift(a.cap_w + kChunkMetaWords + 1, chunk_unroll<kTrim>());
+  chunk_kernel<kTrim><<<frame_blocks(a.rows, 32 >> a.group_shift), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -453,13 +620,39 @@ int hgum_unpack_frames_batch(const void* frames, void* hdr, void* pay, long long
 int hgum_pack_chunks_batch(const void* meta, const void* tokens, const void* counts,
                            void* out, long long rows, int cap_w, int elem_words,
                            void* stream) {
-  const int64_t total = static_cast<int64_t>(rows) * (cap_w + kChunkMetaWords + 1);
-  if (total == 0) return 0;
-  pack_chunks_kernel<<<n_blocks(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(meta), static_cast<const uint32_t*>(tokens),
-      static_cast<const uint32_t*>(counts), static_cast<uint32_t*>(out), total, cap_w,
-      static_cast<uint32_t>(elem_words));
-  return static_cast<int>(cudaGetLastError());
+  if (rows >= (1LL << 32) || cap_w < 0 || cap_w >= (1 << 30) || elem_words < 0) {
+    return cudaErrorInvalidValue;
+  }
+  if (rows == 0) return 0;
+  ChunkArgs a = {};
+  a.meta = static_cast<const uint32_t*>(meta);
+  a.tokens = static_cast<const uint32_t*>(tokens);
+  a.counts = static_cast<const uint32_t*>(counts);
+  a.out = static_cast<uint32_t*>(out);
+  a.rows = static_cast<uint32_t>(rows);
+  a.cap_w = static_cast<uint32_t>(cap_w);
+  a.mask_words = static_cast<uint32_t>(elem_words);
+  return launch_chunks<false>(a, stream);
+}
+
+int hgum_chunk_bursts(const void* meta, const void* tokens, const void* counts,
+                      const void* elem_words, const void* offsets, void* out, long long rows,
+                      int cap_w, long long n_words, void* stream) {
+  if (rows >= (1LL << 32) || cap_w < 0 || cap_w >= (1 << 30) || n_words < 0) {
+    return cudaErrorInvalidValue;
+  }
+  if (rows == 0) return 0;
+  ChunkArgs a = {};
+  a.meta = static_cast<const uint32_t*>(meta);
+  a.tokens = static_cast<const uint32_t*>(tokens);
+  a.counts = static_cast<const uint32_t*>(counts);
+  a.elem_words = static_cast<const uint32_t*>(elem_words);
+  a.offsets = static_cast<const long long*>(offsets);
+  a.out = static_cast<uint32_t*>(out);
+  a.n_words = n_words;
+  a.rows = static_cast<uint32_t>(rows);
+  a.cap_w = static_cast<uint32_t>(cap_w);
+  return launch_chunks<true>(a, stream);
 }
 
 int hgum_pack_run(const void* tok, void* out, long long rows, int nlanes, int stride_w,
@@ -474,22 +667,35 @@ int hgum_pack_run(const void* tok, void* out, long long rows, int nlanes, int st
 
 int hgum_stamp_headers(const void* wire, const void* hdr, void* owner, void* out,
                        long long n_words, long long n_headers, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t n_writes = 2 * static_cast<int64_t>(n_headers);
-  const int64_t first = n_words > n_writes ? n_words : n_writes;
-  if (first == 0) return 0;
-  const int32_t* h = static_cast<const int32_t*>(hdr);
-  int32_t* own = static_cast<int32_t*>(owner);
-  uint32_t* o = static_cast<uint32_t*>(out);
-  stamp_copy_kernel<<<n_blocks(first), kThreads, 0, s>>>(
-      static_cast<const uint32_t*>(wire), h, o, own, n_words, n_writes);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_writes == 0) return static_cast<int>(err);
-  stamp_owner_kernel<<<n_blocks(n_writes), kThreads, 0, s>>>(h, own, n_words, n_writes);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stamp_write_kernel<<<n_blocks(n_writes), kThreads, 0, s>>>(h, own, o, n_words, n_writes);
-  return static_cast<int>(cudaGetLastError());
+  if (n_words < 0 || n_headers < 0 || n_headers >= (1LL << 31)) return cudaErrorInvalidValue;
+  if (n_words == 0) return 0;
+  // the grid the card holds at once (a grid sync needs every block
+  // resident), at most four blocks per SM and no more than the work needs
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stamp_kernel, kThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm <= 0) return cudaErrorCooperativeLaunchTooLarge;
+  }
+  StampArgs a = {};
+  a.wire = static_cast<const uint32_t*>(wire);
+  a.hdr = static_cast<const int32_t*>(hdr);
+  a.owner = static_cast<int32_t*>(owner);
+  a.out = static_cast<uint32_t*>(out);
+  a.n_words = n_words;
+  a.n_writes = 2 * n_headers;
+  a.vec = ((reinterpret_cast<uintptr_t>(wire) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const long long work = (a.vec ? n_words / 4 : n_words) > a.n_writes
+                             ? (a.vec ? n_words / 4 : n_words) : a.n_writes;
+  const long long need = (work + kThreads - 1) / kThreads;
+  const long long most = static_cast<long long>(per_sm < 4 ? per_sm : 4) * sm_count();
+  const unsigned int blocks = static_cast<unsigned int>(need < most ? (need > 0 ? need : 1)
+                                                                     : most);
+  void* args[] = {&a};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      (void*)stamp_kernel, dim3(blocks), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream)));
 }
 
 const char* hgum_frame_pack_error_string(int code) {

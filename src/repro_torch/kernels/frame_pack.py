@@ -1,8 +1,8 @@
 """SER payload run, header stamping, routed-fabric frame assembly, RX split
 and stream-fragment assembly on the card.
 
-Five hand-written CUDA kernels (``csrc/frame_pack.cu``), each beside a
-plain PyTorch version with the same signature:
+Hand-written CUDA kernels (``csrc/frame_pack.cu``), each beside a plain
+PyTorch version with the same signature:
 
 * :func:`pack_run` — ``(N, nlanes)`` token lanes, lane-masked to ``nbytes``
   and zero-padded to a pitch of ``stride`` bytes (``stride % 4 == 0``),
@@ -13,7 +13,8 @@ plain PyTorch version with the same signature:
   header row ``[word, size, list_level]`` written into words ``word`` and
   ``word + 1``, in order, so the last header wins where two meet; words
   outside ``[0, W)`` are dropped (the reference's numpy oracle wraps a
-  negative word and raises past the end).  Replaces ``_header_kernel``.
+  negative word and raises past the end).  Replaces ``_header_kernel``;
+  one cooperative launch per call.
 * :func:`frame_batch` — the routed fabric's framing in one launch: B
   streams of payload words, their byte counts, routes ``(src, dst, seq0)``
   and ListLevels -> the wire-layout frames ``(B, F, 4 + frame_words)``,
@@ -37,6 +38,11 @@ plain PyTorch version with the same signature:
   ``_chunk_kernel``; with ``elem_words`` it also zeroes the element words
   past ``count * elem_words``, the tail mask the reference's
   ``kernels.ops.encode_chunks_batch`` applies before its kernel.
+* :func:`chunk_bursts` — the same kernel body in its trimmed form: every
+  row written as exactly ``[meta | count * elem_words words | count]`` at
+  a word offset of one flat output, ``elem_words`` given per row, so the
+  fragments of several lanes (token and logprob plans) pack in one launch
+  and their bursts are slices of the result.
 
 The structure half of framing (sizes, CRC32, route words, tail masking) in
 plain torch is ``framing.frame_parts_batch``: with the join, the plain
@@ -47,6 +53,11 @@ its plain version only for tensors on the CPU.  For CUDA tensors it
 launches the kernel or raises; any other device raises.  Each launch adds
 one to :data:`LAUNCHES`; inside :func:`recording` it also records the
 call's inputs, so a path's calls can be replayed as the path made them.
+
+The reference's wrappers keep its signatures, the keyword-only
+``interpret`` (and ``block``) of the Pallas grid included.  That grid
+does not exist on the card, so both are accepted and ignored: the
+tensors' device alone picks the route.
 """
 from __future__ import annotations
 
@@ -75,6 +86,7 @@ LAUNCHES: Dict[str, int] = {
     "frame_batch": 0,
     "unpack_frames_batch": 0,
     "pack_chunks_batch": 0,
+    "chunk_bursts": 0,
 }
 
 # CRC lanes per frame of the frame_batch kernel (kCrcLanes in
@@ -107,6 +119,11 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ],
+    "hgum_chunk_bursts": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p,
+    ],
 }
 
 #: inside :func:`recording`: (kernel, inputs) of every launch
@@ -114,7 +131,8 @@ _RECORDED: Optional[List[Tuple[str, tuple]]] = None
 
 # one launch covers at most 2**31 - 1 blocks of 256 threads
 _MAX_WORDS = (2**31 - 1) * 256
-# the frame kernel's index math is 32-bit: frames, and words of a payload row
+# the frame kernel's index math is 32-bit: frames, and words of a payload row;
+# so is the fragment kernel's: rows, and words of a row
 _MAX_FRAMES = 2**32 - 1
 
 
@@ -237,6 +255,27 @@ def _check_pack_run(tokens: torch.Tensor, stride: int, nbytes: int) -> Tuple[int
     return n, nlanes
 
 
+def _check_chunks(meta: torch.Tensor, tokens: torch.Tensor, counts: torch.Tensor) -> None:
+    if (meta.dim() != 2 or meta.shape[1] != CHUNK_META_WORDS or tokens.dim() != 2
+            or tuple(counts.shape) != (meta.shape[0], 1)
+            or tokens.shape[0] != meta.shape[0]):
+        raise ValueError(f"meta {tuple(meta.shape)}, tokens {tuple(tokens.shape)} and "
+                         f"counts {tuple(counts.shape)} do not pair up as (B, 3), "
+                         f"(B, capW) and (B, 1)")
+
+
+def _check_chunk_bursts(meta: torch.Tensor, tokens: torch.Tensor, counts: torch.Tensor,
+                        elem_words: torch.Tensor, offsets: torch.Tensor) -> None:
+    _check_chunks(meta, tokens, counts)
+    rows = meta.shape[0]
+    if tuple(elem_words.shape) != (rows, 1) or tuple(offsets.shape) != (rows,):
+        raise ValueError(f"elem_words {tuple(elem_words.shape)} and offsets "
+                         f"{tuple(offsets.shape)} are not (B, 1) and (B,) for {rows} rows")
+    if offsets.dtype != torch.int64 or offsets.device != meta.device:
+        raise ValueError(f"offsets must be int64 on {meta.device}, got {offsets.dtype} on "
+                         f"{offsets.device}")
+
+
 def _check_stamp_headers(wire: torch.Tensor, headers: torch.Tensor) -> None:
     if wire.dim() != 1 or headers.dim() != 2 or headers.shape[1] != 3:
         raise ValueError(f"wire {tuple(wire.shape)} and headers {tuple(headers.shape)} "
@@ -301,15 +340,40 @@ def pack_chunks_batch_plain(meta: torch.Tensor, tokens: torch.Tensor,
     return torch.cat([meta, tokens, counts], dim=-1)
 
 
+def chunk_bursts_plain(meta: torch.Tensor, tokens: torch.Tensor, counts: torch.Tensor,
+                       elem_words: torch.Tensor, offsets: torch.Tensor,
+                       n_words: int) -> torch.Tensor:
+    """The padded rows of :func:`pack_chunks_batch_plain`, each masked with
+    its own ``elem_words``, trimmed to ``[meta | live words | count]`` and
+    joined in row order; raises unless ``offsets`` is that join's row
+    starts and ``n_words`` its length."""
+    _check_chunk_bursts(meta, tokens, counts, elem_words, offsets)
+    cap_w = tokens.shape[1]
+    # the live words: the u32 product counts * elem_words, at most cap_w
+    live = (((counts.long() & 0xFFFFFFFF) * (elem_words.long() & 0xFFFFFFFF))
+            & 0xFFFFFFFF).clamp(max=cap_w)
+    col = torch.arange(cap_w + CHUNK_META_WORDS + 1, device=tokens.device)
+    rows = torch.cat([meta, torch.where(col[None, :cap_w] < live, tokens, 0), counts], -1)
+    lengths = live[:, 0] + CHUNK_META_WORDS + 1
+    starts = torch.cumsum(lengths, 0) - lengths
+    if not torch.equal(offsets, starts) or int(lengths.sum()) != int(n_words):
+        raise ValueError("offsets and n_words are not the prefix sum of the trimmed rows' "
+                         "lengths (4 + counts * elem_words words each)")
+    keep = (col[None, :] < CHUNK_META_WORDS + live) | (col[None, :] == cap_w + CHUNK_META_WORDS)
+    return rows[keep]
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def pack_run(tokens: torch.Tensor, stride: int, nbytes: int) -> torch.Tensor:
+def pack_run(tokens: torch.Tensor, stride: int, nbytes: int, *,
+             interpret: bool = True) -> torch.Tensor:
     """The wire ``(N * stride / 4,)`` of ``N`` tokens at a pitch of
     ``stride`` bytes from byte 0: row ``r``, word ``c`` holds ``tokens[r, c]``
-    with the bytes past ``nbytes`` zeroed for ``c < nlanes``, and 0 after."""
+    with the bytes past ``nbytes`` zeroed for ``c < nlanes``, and 0 after.
+    ``interpret`` (the reference's Pallas switch) is accepted and ignored."""
     stride, nbytes = int(stride), int(nbytes)
     n, nlanes = _check_pack_run(tokens, stride, nbytes)
     if _on_cpu(tokens):
@@ -325,11 +389,16 @@ def pack_run(tokens: torch.Tensor, stride: int, nbytes: int) -> torch.Tensor:
     return out
 
 
-def stamp_headers(wire: torch.Tensor, headers: torch.Tensor) -> torch.Tensor:
+def stamp_headers(wire_u32: torch.Tensor, headers: torch.Tensor, *,
+                  interpret: bool = True) -> torch.Tensor:
     """A copy of the ``(W,)`` wire with ``size`` at word ``word`` and
     ``list_level`` at ``word + 1`` for each header row ``[word, size,
     list_level]`` of ``(H, 3)``, in order (the last header wins where two
-    meet); words outside the wire are dropped."""
+    meet); words outside the wire are dropped.  One launch on the card (none
+    for ``W = 0``); a table whose words increase by at least 2 skips the
+    owner pass, whose scratch comes from the caching allocator,
+    uninitialised.  ``interpret`` is accepted and ignored."""
+    wire = wire_u32
     _check_stamp_headers(wire, headers)
     if _on_cpu(wire, headers):
         return stamp_headers_plain(wire, headers)
@@ -339,17 +408,20 @@ def stamp_headers(wire: torch.Tensor, headers: torch.Tensor) -> torch.Tensor:
     wire, headers = wire.contiguous(), headers.contiguous()
     out = torch.empty_like(wire)
     if n_words:
-        owner = torch.empty(n_words, dtype=torch.int32, device=wire.device)
+        # the owner scratch and, last, the kernel's flag word: none initialised
+        owner = torch.empty(n_words + 1, dtype=torch.int32, device=wire.device)
         _launch("stamp_headers", (wire, headers), "hgum_stamp_headers", wire.data_ptr(),
                 headers.data_ptr(), owner.data_ptr(), out.data_ptr(), n_words, n_headers,
                 _stream(out))
     return out
 
 
-def pack_frames_batch(headers: torch.Tensor, payloads: torch.Tensor) -> torch.Tensor:
+def pack_frames_batch(headers: torch.Tensor, payloads: torch.Tensor, *,
+                      interpret: bool = True) -> torch.Tensor:
     """Frames ``(..., 4 + frame_words)`` from headers ``(..., 4)`` and
     payloads ``(..., frame_words)`` with the same leading shape (the
-    reference takes ``(B, F, ·)``); on the card ``frame_words % 4 == 0``."""
+    reference takes ``(B, F, ·)``); on the card ``frame_words % 4 == 0``.
+    ``interpret`` is accepted and ignored."""
     if headers.shape[-1] != HDR_WORDS or headers.shape[:-1] != payloads.shape[:-1]:
         raise ValueError(f"headers {tuple(headers.shape)} and payloads "
                          f"{tuple(payloads.shape)} do not pair up as (..., 4) and "
@@ -419,9 +491,11 @@ def frame_batch(payloads: torch.Tensor, nbytes, routes, levels, frame_phits: int
     return out
 
 
-def unpack_frames_batch(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def unpack_frames_batch(frames: torch.Tensor, *, block: int = 8,
+                        interpret: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split ``(N, 4 + frame_words)`` frames into (headers ``(N, 4)``,
-    payloads ``(N, frame_words)``)."""
+    payloads ``(N, frame_words)``).  ``block`` and ``interpret`` describe
+    the reference's Pallas grid; they are accepted and ignored."""
     if frames.dim() != 2 or frames.shape[1] < HDR_WORDS:
         raise ValueError(f"frames must be (N, 4 + frame_words), got {tuple(frames.shape)}")
     if _on_cpu(frames):
@@ -440,7 +514,8 @@ def unpack_frames_batch(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
 
 
 def pack_chunks_batch(meta: torch.Tensor, tokens: torch.Tensor, counts: torch.Tensor,
-                      elem_words: int = 0) -> torch.Tensor:
+                      elem_words: int = 0, *, block: int = 8,
+                      interpret: bool = True) -> torch.Tensor:
     """Fragment rows ``(B, capW + 4)`` from meta ``(B, 3)``, element words
     ``(B, capW)`` and element counts ``(B, 1)``: ``[stream_id, step, flags |
     capW words | count]``, the count after the elements (paper §IV-B).
@@ -448,20 +523,17 @@ def pack_chunks_batch(meta: torch.Tensor, tokens: torch.Tensor, counts: torch.Te
     With the default ``elem_words=0`` the element words are copied as they
     are (the reference kernel's contract: pre-masked tokens); with
     ``elem_words >= 1`` the words past ``count * elem_words`` come out as
-    zeros, the fused tail mask of ``ops.encode_chunks_batch``."""
-    if (meta.dim() != 2 or meta.shape[1] != CHUNK_META_WORDS or tokens.dim() != 2
-            or tuple(counts.shape) != (meta.shape[0], 1)
-            or tokens.shape[0] != meta.shape[0]):
-        raise ValueError(f"meta {tuple(meta.shape)}, tokens {tuple(tokens.shape)} and "
-                         f"counts {tuple(counts.shape)} do not pair up as (B, 3), "
-                         f"(B, capW) and (B, 1)")
+    zeros, the fused tail mask of ``ops.encode_chunks_batch``.  ``block``
+    and ``interpret`` (the reference's Pallas grid) are accepted and
+    ignored."""
+    _check_chunks(meta, tokens, counts)
     if not 0 <= elem_words < 2**31:
         raise ValueError(f"elem_words must be >= 0 (0: no tail mask), got {elem_words}")
     if _on_cpu(meta, tokens, counts):
         return pack_chunks_batch_plain(meta, tokens, counts, elem_words)
     rows, cap_w = tokens.shape
     width = cap_w + CHUNK_META_WORDS + 1
-    if rows * width > _MAX_WORDS:
+    if rows * width > _MAX_WORDS or rows > _MAX_FRAMES or cap_w >= 2**30:
         raise ValueError(f"{rows} fragments of {width} words exceed one launch")
     meta, tokens, counts = meta.contiguous(), tokens.contiguous(), counts.contiguous()
     out = torch.empty((rows, width), dtype=torch.int32, device=meta.device)
@@ -469,4 +541,34 @@ def pack_chunks_batch(meta: torch.Tensor, tokens: torch.Tensor, counts: torch.Te
         _launch("pack_chunks_batch", (meta, tokens, counts, elem_words),
                 "hgum_pack_chunks_batch", meta.data_ptr(), tokens.data_ptr(),
                 counts.data_ptr(), out.data_ptr(), rows, cap_w, elem_words, _stream(out))
+    return out
+
+
+def chunk_bursts(meta: torch.Tensor, tokens: torch.Tensor, counts: torch.Tensor,
+                 elem_words: torch.Tensor, offsets: torch.Tensor,
+                 n_words: int) -> torch.Tensor:
+    """The trimmed form of :func:`pack_chunks_batch`: ``(n_words,)`` lanes
+    holding row ``r`` as exactly ``[meta | live words | count]`` from word
+    ``offsets[r]``, with ``live = min(counts * elem_words, capW)`` (a u32
+    product) and ``elem_words`` ``(B, 1)`` per row.  ``offsets`` (``(B,)``
+    int64) is the caller's prefix sum of the row lengths ``4 + live`` and
+    ``n_words`` their total, so the rows abut; the plain version raises
+    otherwise, and the kernel writes no word outside ``[0, n_words)``.
+    One launch for every row (none for ``B = 0``)."""
+    _check_chunk_bursts(meta, tokens, counts, elem_words, offsets)
+    n_words = int(n_words)
+    if _on_cpu(meta, tokens, counts, elem_words):
+        return chunk_bursts_plain(meta, tokens, counts, elem_words, offsets, n_words)
+    rows, cap_w = tokens.shape
+    if rows > _MAX_FRAMES or cap_w >= 2**30 or max(rows * cap_w, n_words) > _MAX_WORDS:
+        raise ValueError(f"{rows} fragments of {cap_w} words ({n_words} out) exceed one "
+                         f"launch")
+    meta, tokens, counts = meta.contiguous(), tokens.contiguous(), counts.contiguous()
+    elem_words, offsets = elem_words.contiguous(), offsets.contiguous()
+    out = torch.empty(n_words, dtype=torch.int32, device=meta.device)
+    if rows:
+        _launch("chunk_bursts", (meta, tokens, counts, elem_words, offsets, n_words),
+                "hgum_chunk_bursts", meta.data_ptr(), tokens.data_ptr(), counts.data_ptr(),
+                elem_words.data_ptr(), offsets.data_ptr(), out.data_ptr(), rows, cap_w,
+                n_words, _stream(out))
     return out

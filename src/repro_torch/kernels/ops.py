@@ -18,8 +18,18 @@ batched SER and RX split (counterparts of the reference functions of the
 same names): one ``frame_batch`` launch (headers, CRC32 included, built in
 the kernel), and one ``unpack_frames_batch`` launch.
 
+``encode_chunks_batch`` is the streaming plane's fragment SER (padded
+rows, the reference's function); ``encode_chunks_trimmed`` packs the
+fragments of several lanes, each row trimmed to its live words, in one
+launch (``core.stream_plans.encode_fragment_bursts``).
+
 Tensors on a CUDA device launch the CUDA kernels; tensors on the CPU take
 the kernels' plain versions.  Lanes are ``int32`` tensors holding u32 bits.
+Every wrapper of the reference keeps its signature, down to ``interpret``
+at the reference's index (``encode_frames_batch``: before ``adaptive``).
+``interpret`` selects the Pallas interpreter in the reference; the card
+has no Pallas grid, so here it is accepted and ignored, and no argument
+selects a route.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import torch
 from ..core.vectorized import BatchedDecodePlan, DecodePlan, stack_wires
 from ..device import DeviceLike, default_device
 from .frame_pack import (
+    chunk_bursts,
     frame_batch,
     pack_chunks_batch,
     pack_run,
@@ -50,23 +61,26 @@ def wire_to_u32(wire: bytes | np.ndarray, device: DeviceLike = None) -> torch.Te
 
 
 def decode_run(wire_u32: torch.Tensor, base: int, stride: int, count: int,
-               nbytes: int) -> torch.Tensor:
+               nbytes: int, interpret: bool = True) -> torch.Tensor:
     return unpack_run(wire_u32, base, stride, count, nbytes)
 
 
-def decode_gather(wire_u32: torch.Tensor, offsets, nbytes: int) -> torch.Tensor:
+def decode_gather(wire_u32: torch.Tensor, offsets, nbytes: int,
+                  interpret: bool = True) -> torch.Tensor:
     """Gather rows at byte ``offsets`` (numpy or tensor; int64 on the card)."""
     offs = torch.as_tensor(offsets, dtype=torch.int64, device=wire_u32.device)
     return unpack_gather(wire_u32, offs.contiguous(), nbytes)
 
 
-def encode_run(tokens: torch.Tensor, stride: int, nbytes: int) -> torch.Tensor:
+def encode_run(tokens: torch.Tensor, stride: int, nbytes: int,
+               interpret: bool = True) -> torch.Tensor:
     """``(N, nlanes)`` token lanes -> the u32 wire of N tokens at a pitch of
     ``stride`` bytes (``stride % 4 == 0``), lane-masked to ``nbytes``."""
     return pack_run(tokens, stride, nbytes)
 
 
-def write_headers(wire_u32: torch.Tensor, headers: torch.Tensor) -> torch.Tensor:
+def write_headers(wire_u32: torch.Tensor, headers: torch.Tensor,
+                  interpret: bool = True) -> torch.Tensor:
     """Stamp ``(H, 3)`` int32 rows ``[word, size, list_level]`` into a copy
     of a framed u32 stream (last header wins; words outside the wire are
     dropped)."""
@@ -141,6 +155,7 @@ def decode_batch_kernel(
     row_bytes: int,
     bplan: BatchedDecodePlan,
     paths: Optional[List[str]] = None,
+    interpret: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """Batched DES payload pass on the kernels.
 
@@ -169,6 +184,7 @@ def decode_message_kernel(
     wire_u32: torch.Tensor,
     plan: DecodePlan,
     paths: Optional[List[str]] = None,
+    interpret: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """DES payload pass of one message on the kernels (run fast path per
     leaf).  Returns path -> int32 lanes [cap, nlanes]."""
@@ -199,6 +215,7 @@ def encode_frames_batch(
     routes,  # (B, 3) (src, dst, seq0) per stream
     list_level=1,  # int, or (B,) per-stream ListLevels
     frame_phits: int = 16,
+    interpret: bool = True,  # the reference's Pallas switch: ignored
     adaptive: bool = False,  # stamp the shortest-path route-word bit
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-destination SER: B wires -> B routed framed streams.
@@ -218,7 +235,8 @@ def encode_frames_batch(
     return frames, n_frames
 
 
-def decode_frames_batch(frames_u32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def decode_frames_batch(frames_u32: torch.Tensor,
+                        interpret: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """RX split of delivered frames: (N, width) -> (headers, payloads)."""
     return unpack_frames_batch(frames_u32)
 
@@ -228,6 +246,7 @@ def encode_chunks_batch(
     tokens: torch.Tensor,  # (B, cap * elem_words) int32 element words
     counts: torch.Tensor,  # (B,) int32 lanes — true ELEMENT counts
     elem_words: int = 1,
+    interpret: bool = True,
 ) -> torch.Tensor:
     """Generated stream-fragment SER: B fragments -> B wire rows
     ``[meta | element words | count]`` (count after the elements, §IV-B).
@@ -243,3 +262,23 @@ def encode_chunks_batch(
     if counts.dim() != 1:
         raise ValueError(f"counts must be (B,), got {tuple(counts.shape)}")
     return pack_chunks_batch(meta, tokens, counts[:, None], elem_words)
+
+
+def encode_chunks_trimmed(
+    meta: torch.Tensor,  # (B, 3) int32 lanes — (stream_id, step, flags)
+    tokens: torch.Tensor,  # (B, capW) int32 element words
+    counts: torch.Tensor,  # (B,) int32 lanes — true ELEMENT counts
+    elem_words: torch.Tensor,  # (B,) int32 — u32 words per element, per row
+    offsets: torch.Tensor,  # (B,) int64 — word where each row starts
+    n_words: int,  # words of all rows
+) -> torch.Tensor:
+    """Fragment SER of several lanes in one launch: row ``r`` comes out as
+    exactly ``[meta | counts[r] * elem_words[r] words | count]`` from word
+    ``offsets[r]`` of one ``(n_words,)`` lane buffer, so each lane's burst
+    is a slice of it.  A row is its padded ``encode_chunks_batch`` row with
+    the masked element words cut out.  The caller gives the rows' prefix
+    sum as ``offsets`` (the rows abut)."""
+    if counts.dim() != 1 or elem_words.dim() != 1:
+        raise ValueError(f"counts and elem_words must be (B,), got "
+                         f"{tuple(counts.shape)} and {tuple(elem_words.shape)}")
+    return chunk_bursts(meta, tokens, counts[:, None], elem_words[:, None], offsets, n_words)

@@ -26,6 +26,11 @@ For a CUDA tensor it launches the kernel or raises; any other device
 raises.  Each launch adds one to :data:`LAUNCHES`; inside
 :func:`recording` it also records the call, so a path's calls can be
 replayed as the path made them.
+
+The reference's wrappers (:func:`unpack_run`, :func:`unpack_gather`) keep
+its signatures: ``wire_u32`` first, and the keyword-only ``interpret`` of
+the Pallas grid, which does not exist on the card.  It is accepted and
+ignored; no argument selects a route.
 """
 from __future__ import annotations
 
@@ -252,10 +257,14 @@ def unpack_run_general(
 
 
 def unpack_gather(
-    wire: torch.Tensor, offsets: torch.Tensor, nbytes: int
+    wire_u32: torch.Tensor, offsets: torch.Tensor, nbytes: int, *, interpret: bool = True
 ) -> torch.Tensor:
-    """One row per byte offset in ``offsets`` (1-D int64, same device)."""
-    nbytes = int(nbytes)
+    """One row per byte offset in ``offsets`` (1-D int64, same device).
+
+    ``interpret`` is the reference's Pallas switch; the card has no Pallas
+    grid, so it is accepted and ignored (the tensor's device picks the
+    route)."""
+    wire, nbytes = wire_u32, int(nbytes)
     if offsets.dim() != 1:
         raise ValueError(f"offsets must be 1-D, got {tuple(offsets.shape)}")
     n = offsets.shape[0]
@@ -277,10 +286,12 @@ def unpack_gather(
 
 
 def unpack_run(
-    wire: torch.Tensor, base: int, stride: int, count: int, nbytes: int
+    wire_u32: torch.Tensor, base: int, stride: int, count: int, nbytes: int, *,
+    interpret: bool = True
 ) -> torch.Tensor:
     """Uniform run: the aligned kernel when base and stride are multiples
-    of 4, else the general one (the reference ``unpack_run``'s choice)."""
+    of 4, else the general one (the reference ``unpack_run``'s choice).
+    ``interpret`` is accepted and ignored, as in :func:`unpack_gather`."""
     if int(base) % 4 == 0 and int(stride) % 4 == 0:
-        return unpack_run_aligned(wire, base, stride, count, nbytes)
-    return unpack_run_general(wire, base, stride, count, nbytes)
+        return unpack_run_aligned(wire_u32, base, stride, count, nbytes)
+    return unpack_run_general(wire_u32, base, stride, count, nbytes)

@@ -524,8 +524,9 @@ def serve_requests_streaming(
     sequence count against ``slots``), one ContinuousBatcher per shard —
     but the response path streams: every decode tick, each shard writes
     the step's tokens into per-sequence ``StreamWriter``s and one
-    ``ChunkLane`` burst per (shard, tenant) rides the fabric back (one B7
-    kernel launch per burst).  ``on_token(req_idx, prompt_idx, step,
+    ``ChunkLane`` burst per (shard, tenant) rides the fabric back (all of
+    a tick's bursts packed by one launch of B7's trimmed form,
+    ``stream.flush_lanes``).  ``on_token(req_idx, prompt_idx, step,
     token)`` fires as tokens reach the ingress; ``on_event(StreamEvent)``
     per arriving chunk.
 
@@ -565,7 +566,7 @@ def serve_requests_streaming(
     fabric, the batchers, the lanes and the readers; ``analyze=True``,
     ``trace=`` and ``spans=`` wait for ROADMAP item 11 and raise.
     """
-    from ..stream import ChunkLane, StreamReader, logprob_stream_plan
+    from ..stream import ChunkLane, StreamReader, flush_lanes, logprob_stream_plan
 
     dev = default_device(device)
     _check_params_device(params, dev)
@@ -848,8 +849,8 @@ def serve_requests_streaming(
                             b.tick_logprobs[((k, j), pos)]
                         ).view(np.uint32))
                         lp_writers[(s, k, j)].write(((tok, bits),), eos=eos)
-            for lane in lanes.values():
-                lane.flush()  # ONE burst per (shard, tenant) this tick
+            # ONE burst per (shard, tenant) this tick, all packed in one launch
+            flush_lanes(lanes.values())
             if overlap:
                 fabric.exchange_async()  # dispatch routing; overlap next tick
             else:
@@ -862,8 +863,7 @@ def serve_requests_streaming(
             # still holds, then keep the fabric ticking so in-flight
             # chunks, ARQ recovery traffic and retried request wires land
             if not force_flushed:
-                for lane in lanes.values():
-                    lane.flush(force=True)
+                flush_lanes(lanes.values(), force=True)
                 force_flushed = True
             idle += 1
             if idle > drain_cap:

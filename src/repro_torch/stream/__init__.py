@@ -19,7 +19,8 @@ Layers:
   kernel.  New streamed payloads (e.g. the shipped logprob stream) are
   declared purely in schema JSON — no hand-written codec.
 * ``plane``  — ``StreamWriter``/``ChunkLane`` on the shard side (one fabric
-  message per tenant per tick), ``StreamReader`` at the ingress (ordering,
+  message per tenant per tick; ``flush_lanes`` packs every lane's burst
+  of a tick in one launch), ``StreamReader`` at the ingress (ordering,
   per-stream corruption flags, EOS tracking).  Both take a generated
   ``plan=`` to carry any typed stream; the default is the token plan.
 
@@ -48,6 +49,7 @@ from .plane import (
     StreamState,
     StreamWriter,
     arrive_stats,
+    flush_lanes,
 )
 
 __all__ = [
@@ -56,5 +58,5 @@ __all__ = [
     "decode_token_chunks", "encode_chunk_burst", "encode_token_chunk",
     "logprob_stream_plan", "token_stream_plan",
     "ChunkLane", "StreamEvent", "StreamReader", "StreamState", "StreamWriter",
-    "arrive_stats",
+    "arrive_stats", "flush_lanes",
 ]

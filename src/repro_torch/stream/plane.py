@@ -10,7 +10,8 @@ tokens as a :class:`~repro_torch.stream.chunks.TokenChunk`, and one
 kernel launch on the fabric's device (``encode_chunk_burst``, the B7 CUDA
 kernel on the card) and mails the burst as ONE fabric message tagged
 with the lane's ``list_level`` — the QoS class the router's weighted
-round-robin credit scheduler keys on.
+round-robin credit scheduler keys on.  :func:`flush_lanes` does the same
+for every lane of a tick with ONE launch (B7's trimmed form) for all.
 
 The reader side lives at the ingress.  :meth:`StreamReader.feed` consumes
 fabric :class:`~repro_torch.fabric.mailbox.Delivery` records, parses each burst
@@ -42,9 +43,10 @@ from ..core.stream_plans import (
     StreamPlan,
     decode_fragments,
     encode_fragment_burst,
+    encode_fragment_bursts,
 )
 from ..obs.metrics import window_stats
-from .chunks import TokenChunk, decode_token_chunks, encode_chunk_burst
+from .chunks import TokenChunk, decode_token_chunks, encode_chunk_burst, token_stream_plan
 
 #: the ONE shared arrive-window implementation (``obs.metrics``): kept
 #: under its historical name here for the benchmarks and tests that import
@@ -197,9 +199,23 @@ class ChunkLane:
         and holds the rest (or holds everything when ``clamp_chunks=0``,
         up to ``max_hold`` consecutive flushes).  Returns the number of
         chunks sent; ``force=True`` bypasses the clamp (the end-of-serve
-        drain)."""
-        if not self._pending:
+        drain).  :func:`flush_lanes` flushes many lanes in one launch."""
+        chunks, held_before = self._take(force)
+        if not chunks:
             return 0
+        dev = self.mailbox.fabric.router.device
+        if self.plan is None:
+            wire = encode_chunk_burst(chunks, dev)
+        else:
+            wire = encode_fragment_burst(self.plan, chunks, dev)
+        return self._ship(wire, chunks, held_before)
+
+    def _take(self, force: bool) -> Tuple[List, int]:
+        """The chunks this flush ships (none when the lane is empty or
+        holds), after the clamp, trickle and hold rules; and ``holds`` as
+        it was before."""
+        if not self._pending:
+            return [], self.holds
         held_before = self.holds
         if self._clamped and not force:
             if self.clamp_chunks <= 0:  # full hold, bounded by max_hold
@@ -207,7 +223,7 @@ class ChunkLane:
                     self._held += 1
                     self.holds += 1
                     self._note_flush(0, held_before)
-                    return 0
+                    return [], held_before
                 chunks, self._pending = self._pending, []
             else:  # trickle: oldest chunks ride, the rest wait
                 chunks = self._pending[: self.clamp_chunks]
@@ -217,11 +233,10 @@ class ChunkLane:
         else:
             chunks, self._pending = self._pending, []
         self._held = 0
-        dev = self.mailbox.fabric.router.device
-        if self.plan is None:
-            wire = encode_chunk_burst(chunks, dev)
-        else:
-            wire = encode_fragment_burst(self.plan, chunks, dev)
+        return chunks, held_before
+
+    def _ship(self, wire: bytes, chunks: List, held_before: int) -> int:
+        """Mail one serialized burst of ``chunks``; returns their count."""
         self.mailbox.send(self.dst, wire, list_level=self.list_level)
         self.flushes += 1
         if self.spans is not None:
@@ -243,6 +258,34 @@ class ChunkLane:
             self._counter("stream.lane.holds").add(1)
             self.metrics.gauge("stream.lane.chunks_held", dst=self.dst,
                                level=self.list_level).set(len(self._pending))
+
+
+def flush_lanes(lanes: Iterable[ChunkLane], force: bool = False) -> int:
+    """Flush every lane as :meth:`ChunkLane.flush` would, one after another,
+    but serialize all their bursts in ONE launch per device (one per tick
+    on one card; ``core.stream_plans.encode_fragment_bursts``).
+
+    Each lane first takes its chunks under its clamp, trickle and hold
+    rules; every fragment is then validated and packed before any burst is
+    mailed; then the lanes that ship mail their bursts in lane order, with
+    the same ``mailbox.send`` calls, spans and metrics as ``lane.flush()``
+    on each lane in turn.  Returns the chunks sent."""
+    taken = []
+    for lane in lanes:
+        chunks, held_before = lane._take(force)
+        if chunks:
+            taken.append((lane, chunks, held_before))
+    by_device: Dict[object, List[int]] = {}
+    for i, (lane, _, _) in enumerate(taken):
+        by_device.setdefault(lane.mailbox.fabric.router.device, []).append(i)
+    wires: List[bytes] = [b""] * len(taken)
+    for dev, idx in by_device.items():
+        items = [(token_stream_plan() if taken[i][0].plan is None else taken[i][0].plan,
+                  taken[i][1]) for i in idx]
+        for i, wire in zip(idx, encode_fragment_bursts(items, dev)):
+            wires[i] = wire
+    return sum(lane._ship(wire, chunks, held_before)
+               for (lane, chunks, held_before), wire in zip(taken, wires))
 
 
 @dataclass

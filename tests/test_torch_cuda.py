@@ -8,7 +8,9 @@ file imports no JAX, so it runs on the card's machine as it is:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel must equal its plain PyTorch version bit for bit, rows past
-the wire included (both read zeros there).
+the wire included (both read zeros there), and each wrapper call is one
+launch: B8 at wire views and 2**20 headers, B7's trimmed form at rows of
+mixed elem_words, and one trimmed launch per streaming tick that ships.
 """
 import numpy as np
 import pytest
@@ -358,7 +360,8 @@ def test_pack_chunks_kernel_equals_plain(cuda_device, rows, elem_words, cap, mas
 
 def test_streaming_serve_on_card_equals_host(cuda_device):
     """float32 smoke model, TF32 off, logprobs on: the card streams the
-    same wires, tokens and logprobs as the host, through B7."""
+    same wires, tokens and logprobs as the host, through B7's trimmed form
+    (``chunk_bursts``)."""
     cfg = smoke_config(get_config("yi-6b"))
     params_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     params_gpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(cuda_device)
@@ -371,13 +374,118 @@ def test_streaming_serve_on_card_equals_host(cuda_device):
         got = serve.serve_requests_streaming(
             params, cfg, wires, device=dev, on_token=lambda *e, t=toks: t.append(e),
             on_logprob=lambda m, j, s, t, lp, acc=lps: acc.append((m, j, s, t, lp)), **kw)
-        out[str(dev)] = (got, sorted(toks), sorted(lps), fp.LAUNCHES["pack_chunks_batch"])
+        out[str(dev)] = (got, sorted(toks), sorted(lps), fp.LAUNCHES["chunk_bursts"])
     (gw, gt, glp, glaunch), (hw, ht, hlp, _) = out[str(cuda_device)], out["cpu"]
     assert glaunch >= 1
     assert gw == hw == serve.serve_requests(params_cpu, cfg, wires, device="cpu",
                                             max_new=4, pad_to=16, slots=4)
     assert gt == ht and [e[:4] for e in glp] == [e[:4] for e in hlp]
     np.testing.assert_allclose([e[4] for e in glp], [e[4] for e in hlp], atol=1e-5, rtol=1e-5)
+
+
+def _burst_inputs(device, rows, cap, seed, view):
+    """Rows of mixed elem_words (1, 2 and 3), counts 0..cap, their prefix
+    sum; with ``view`` every input is a view at an odd word offset."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ew = torch.randint(1, 4, (rows, 1), dtype=torch.int32, device=device, generator=g)
+    counts = torch.randint(0, cap + 1, (rows, 1), dtype=torch.int32, device=device,
+                           generator=g)
+    cap_w = 3 * cap
+    if view:  # tokens, meta and counts all start 1 word past an allocation
+        buf = torch.randint(-2**31, 2**31, (rows * (cap_w + 4) + 1,), dtype=torch.int32,
+                            device=device, generator=g)
+        toks = buf[1:1 + rows * cap_w].view(rows, cap_w)
+        meta = buf[1 + rows * cap_w:1 + rows * (cap_w + 3)].view(rows, 3)
+        counts = torch.cat([counts.new_zeros(1, 1), counts])[1:]
+    else:
+        toks = torch.randint(-2**31, 2**31, (rows, cap_w), dtype=torch.int32, device=device,
+                             generator=g)
+        meta = torch.randint(-2**31, 2**31, (rows, 3), dtype=torch.int32, device=device,
+                             generator=g)
+    lengths = (counts.long() * ew.long())[:, 0] + 4
+    offsets = torch.cumsum(lengths, 0) - lengths
+    return meta, toks, counts, ew, offsets, int(lengths.sum())
+
+
+@pytest.mark.parametrize("view", [False, True], ids=["aligned", "view"])
+@pytest.mark.parametrize("cap", [1, 5, 40])
+@pytest.mark.parametrize("rows", [0, 1, 7, 1000])
+def test_chunk_bursts_kernel_equals_plain(cuda_device, rows, cap, view):
+    """B7's trimmed form: rows of mixed elem_words at word offsets that are
+    rarely 16-byte aligned, one launch, == the padded rows trimmed."""
+    args = _burst_inputs(cuda_device, rows, cap, rows + cap, view)
+    before = dict(fp.LAUNCHES)
+    got = fp.chunk_bursts(*args)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["chunk_bursts"] == before["chunk_bursts"] + (1 if rows else 0)
+    assert fp.LAUNCHES["pack_chunks_batch"] == before["pack_chunks_batch"]
+    assert got.shape == (args[-1],)
+    assert torch.equal(got, fp.chunk_bursts_plain(*args))
+    host = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    assert torch.equal(got.cpu(), fp.chunk_bursts_plain(*host))
+
+
+def test_fragment_bursts_on_card_equal_host(cuda_device):
+    """core.stream_plans.encode_fragment_bursts: token and logprob lanes,
+    an empty lane, EOS, one launch, every burst == the host codec's."""
+    import importlib
+
+    from repro_torch import stream
+
+    sp = importlib.import_module("repro_torch.core.stream_plans")
+    rng = np.random.default_rng(5)
+    tp, lp = stream.token_stream_plan(), stream.logprob_stream_plan()
+    items = []
+    for i, plan in enumerate([tp, lp, tp, lp, tp]):
+        n_frags = 0 if i == 2 else int(rng.integers(1, 9))
+        frags = []
+        for k in range(n_frags):
+            n = int(rng.integers(0, 5))
+            toks = (tuple(int(t) for t in rng.integers(0, 2**32, n, dtype=np.uint64))
+                    if plan is tp else
+                    tuple((int(rng.integers(0, 2**32)), int(rng.integers(0, 2**32)))
+                          for _ in range(n)))
+            frags.append(sp.Fragment(100 * i + k, k, toks, eos=(k == n_frags - 1)))
+        items.append((plan, frags))
+    before = fp.LAUNCHES["chunk_bursts"]
+    got = sp.encode_fragment_bursts(items, cuda_device)
+    assert fp.LAUNCHES["chunk_bursts"] == before + 1
+    assert got == sp.encode_fragment_bursts(items, "cpu")
+    assert got == [b"".join(sp.encode_fragment(p, f.stream_id, f.step, f.tokens, f.eos)
+                            for f in frags) for p, frags in items]
+    assert got[2] == b""
+
+
+def test_streaming_serve_on_card_is_one_burst_launch_per_tick(cuda_device, monkeypatch):
+    """Every flush of a streaming tick's lanes that ships anything is one
+    chunk_bursts launch (the drain included); the padded form and the plain
+    versions never run; the wires equal the host serve's."""
+    from repro_torch import stream
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran for CUDA tensors")
+
+    cfg = smoke_config(get_config("yi-6b"))
+    params_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params_gpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(cuda_device)
+    wires = serve.synthetic_wires(cfg, 5, 3, seed=4)
+    kw = dict(max_new=4, pad_to=16, slots=4, n_shards=3, logprobs=True)
+    want = serve.serve_requests_streaming(params_cpu, cfg, wires, device="cpu", **kw)
+    shipped = []
+    inner = stream.flush_lanes
+
+    def counted(lanes, force=False):
+        shipped.append(inner(lanes, force))
+        return shipped[-1]
+
+    monkeypatch.setattr(stream, "flush_lanes", counted)
+    monkeypatch.setattr(fp, "chunk_bursts_plain", refuse)
+    monkeypatch.setattr(fp, "pack_chunks_batch_plain", refuse)
+    fp.reset_launches()
+    got = serve.serve_requests_streaming(params_gpu, cfg, wires, device=cuda_device, **kw)
+    assert got == want
+    assert len(shipped) >= 2 and fp.LAUNCHES["pack_chunks_batch"] == 0
+    assert fp.LAUNCHES["chunk_bursts"] == sum(1 for n in shipped if n)
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +548,46 @@ def test_stamp_headers_kernel_many_conflicts(cuda_device):
     hdr = torch.randint(-2, (1 << 12) + 2, (1 << 16, 3), dtype=torch.int32,
                         device=cuda_device, generator=g)
     got = fp.stamp_headers(wire, hdr)
+    assert torch.equal(got, fp.stamp_headers_plain(wire, hdr))
+    assert torch.equal(got.cpu(), fp.stamp_headers_plain(wire.cpu(), hdr.cpu()))
+
+
+@pytest.mark.parametrize("case", ["view+1", "view+2", "view+3", "sorted 2**20",
+                                  "random 2**20"])
+def test_stamp_headers_one_launch_views_and_large(cuda_device, case):
+    """One launch per call: a wire view at a 4-byte offset that is not
+    16-byte aligned (the scalar copy), and tables of 2**20 headers, sorted
+    (a framed stream's; no owner pass) or at random words with repeats and
+    overlaps (the owner pass)."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    if case.startswith("view"):
+        k = int(case[-1])
+        wire = _wire(cuda_device, words=WIRE_WORDS + 4)[k:k + WIRE_WORDS]
+        assert wire.data_ptr() % 16 != 0
+        # words increasing by 2 or more (no owner pass), then two that meet
+        for rows in ([[0, 100, 1], [7, 3, 2], [9, 9, 9], [1599, 5, 6]],
+                     [[0, 100, 1], [7, 3, 2], [8, 9, 9], [1599, 5, 6]]):
+            hdr = _headers(cuda_device, rows)
+            before = fp.LAUNCHES["stamp_headers"]
+            got = fp.stamp_headers(wire, hdr)
+            torch.cuda.synchronize()
+            assert fp.LAUNCHES["stamp_headers"] == before + 1
+            assert torch.equal(got, fp.stamp_headers_plain(wire, hdr))
+        return
+    else:
+        n_words, n_hdr = 1 << 22, 1 << 20
+        wire = _wire(cuda_device, words=n_words)
+        hdr = torch.randint(-2**31, 2**31, (n_hdr, 3), dtype=torch.int32, device=cuda_device,
+                            generator=g)
+        if case.startswith("sorted"):
+            hdr[:, 0] = (torch.arange(n_hdr, device=cuda_device) * 4).int()
+        else:
+            hdr[:, 0] = torch.randint(-4, n_words + 4, (n_hdr,), dtype=torch.int32,
+                                      device=cuda_device, generator=g)
+    before = fp.LAUNCHES["stamp_headers"]
+    got = fp.stamp_headers(wire, hdr)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["stamp_headers"] == before + 1
     assert torch.equal(got, fp.stamp_headers_plain(wire, hdr))
     assert torch.equal(got.cpu(), fp.stamp_headers_plain(wire.cpu(), hdr.cpu()))
 

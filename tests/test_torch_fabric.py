@@ -294,12 +294,18 @@ def test_frame_pack_recording_and_cpu_counts():
         ops.encode_run(torch.ones(2, 2, dtype=torch.int32), 8, 7)
         ops.write_headers(torch.zeros(8, dtype=torch.int32),
                           torch.tensor([[2, 5, 1]], dtype=torch.int32))
+        ops.encode_chunks_trimmed(torch.zeros(2, 3, dtype=torch.int32),
+                                  torch.zeros(2, 4, dtype=torch.int32),
+                                  torch.ones(2, dtype=torch.int32),
+                                  torch.tensor([1, 2], dtype=torch.int32),
+                                  torch.tensor([0, 5]), 11)
     assert made == [] and tpack.LAUNCHES == {"pack_run": 0,
                                              "stamp_headers": 0,
                                              "pack_frames_batch": 0,
                                              "frame_batch": 0,
                                              "unpack_frames_batch": 0,
-                                             "pack_chunks_batch": 0}
+                                             "pack_chunks_batch": 0,
+                                             "chunk_bursts": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -3,11 +3,16 @@
 On the CPU the wrappers take their plain versions, which are held here to
 the JAX oracles (``repro.kernels.ref``, ``core.vectorized.decode_batch``)
 and, for the aligned run, to the Pallas ``unpack_run`` in interpret mode.
+Every public function of the reference's ``kernels.phit_unpack``,
+``frame_pack`` and ``ops`` keeps its signature in the port, and a call in
+the reference's keywords (``wire_u32=``, ``interpret=``, ``block=``)
+gives what the call without them gives.
 Rows are compared where they lie inside the wire: past it the reference
 oracle clips to the last byte while the kernels (and the padded Pallas
 wire) read zeros.  The CUDA kernels themselves are held to their plain
 versions on the card by ``tests/test_torch_cuda.py``.
 """
+import inspect
 from unittest import mock
 
 import numpy as np
@@ -25,12 +30,15 @@ from repro.core import stack_wires as j_stack_wires
 from repro.core import wire_to_u8 as j_wire_to_u8
 from repro.core.idl import Schema as JSchema
 from repro.data.schemas import request_schema as j_request_schema
+from repro.kernels import frame_pack as j_fpack
+from repro.kernels import ops as j_ops
 from repro.kernels import phit_unpack as j_phit
 from repro.kernels import ref as j_ref
 from repro.core import plan_from_wire as j_plan_from_wire
 from repro_torch.core import Schema, batch_plans, decode_batch, lanes_u32, plan_from_wire
 from repro_torch.core import stack_wires
 from repro_torch.data.schemas import request_schema
+from repro_torch.kernels import frame_pack as fp
 from repro_torch.kernels import ops, phit_unpack as pu
 
 NBYTES = [1, 3, 4, 5, 8, 13, 16]
@@ -256,3 +264,142 @@ def test_non_cpu_tensor_never_takes_plain(monkeypatch, kernel):
     with pytest.raises(ValueError, match="unsupported device"):
         call(meta)
     assert calls == [] and launched == []
+
+
+# ---------------------------------------------------------------------------
+# the reference's wrapper signatures (interpret and block accepted, ignored)
+# ---------------------------------------------------------------------------
+
+_MODULES = {"phit_unpack": (j_phit, pu), "frame_pack": (j_fpack, fp), "ops": (j_ops, ops)}
+# every public function each reference module defines (jitted ones included)
+_REF_FUNCTIONS = sorted(
+    (mod, name) for mod, (ref, _) in _MODULES.items() for name, f in vars(ref).items()
+    if not name.startswith("_") and callable(f) and getattr(f, "__module__", "") == ref.__name__
+)
+
+
+def _kind_position(params, name):
+    """Index of ``name`` among the parameters of its kind: positional ones
+    by their place in the list, keyword-only ones among keyword-only."""
+    kind = params[name].kind
+    if kind is inspect.Parameter.KEYWORD_ONLY:
+        return [n for n, p in params.items() if p.kind is kind].index(name)
+    return list(params).index(name)
+
+
+def test_reference_functions_found():
+    assert len(_REF_FUNCTIONS) == 20
+    assert ("ops", "encode_frames_batch") in _REF_FUNCTIONS
+
+
+@pytest.mark.parametrize("module,name", _REF_FUNCTIONS, ids=lambda x: x)
+def test_wrapper_signature_matches_reference(module, name):
+    """Every parameter of the reference function is in the port's, with the
+    same name, kind, position and default (the port's own additions,
+    ``elem_words`` and ``device``, come after the reference's positional
+    ones)."""
+    ref, port = (inspect.signature(getattr(m, name)).parameters for m in _MODULES[module])
+    for pname, p in ref.items():
+        assert pname in port, f"{module}.{name} lacks {pname}"
+        q = port[pname]
+        assert q.kind is p.kind and q.default == p.default, (pname, q, p)
+        assert _kind_position(port, pname) == _kind_position(ref, pname), pname
+
+
+def _keyword_calls():
+    """(plain call, the same call in the reference's keywords) per wrapper."""
+    rng = np.random.default_rng(3)
+    wire = _t(rng.integers(0, 2**32, 64, dtype=np.uint32))
+    offs = torch.tensor([0, 5, 9, 100])
+    toks = torch.from_numpy(rng.integers(-2**31, 2**31, (5, 3)).astype(np.int32))
+    hdrs = torch.tensor([[2, 9, 1], [2, 7, 3], [40, 5, 2]], dtype=torch.int32)
+    meta = torch.from_numpy(rng.integers(-2**31, 2**31, (4, 3)).astype(np.int32))
+    ctoks = torch.from_numpy(rng.integers(-2**31, 2**31, (4, 6)).astype(np.int32))
+    cnts = torch.tensor([3, 0, 1, 2], dtype=torch.int32)
+    frames = torch.from_numpy(rng.integers(-2**31, 2**31, (3, 12)).astype(np.int32))
+    schema = Schema.from_json({"M": [["h", ["Bytes", 3]], ["v", ["Array", ["Bytes", 5]]]]})
+    msg_wire = j_ser(JSchema.from_json({"M": [["h", ["Bytes", 3]],
+                                              ["v", ["Array", ["Bytes", 5]]]]}),
+                     {"h": 7, "v": [1, 2, 3]})
+    plan = plan_from_wire(schema, msg_wire)
+    lanes = ops.wire_to_u32(msg_wire, "cpu")
+    wires = [msg_wire, msg_wire]
+    flat, row = ops.wires_to_u32(wires, "cpu")
+    bplan = batch_plans(schema, wires)
+    return {
+        "unpack_run": (lambda: pu.unpack_run(wire, 1, 5, 30, 5),
+                       lambda: pu.unpack_run(wire_u32=wire, base=1, stride=5, count=30,
+                                             nbytes=5, interpret=True)),
+        "unpack_gather": (lambda: pu.unpack_gather(wire, offs, 7),
+                          lambda: pu.unpack_gather(wire_u32=wire, offsets=offs, nbytes=7,
+                                                   interpret=False)),
+        "pack_run": (lambda: fp.pack_run(toks, 16, 11),
+                     lambda: fp.pack_run(toks, 16, 11, interpret=True)),
+        "stamp_headers": (lambda: fp.stamp_headers(wire, hdrs),
+                          lambda: fp.stamp_headers(wire_u32=wire, headers=hdrs,
+                                                   interpret=True)),
+        "pack_frames_batch": (lambda: fp.pack_frames_batch(frames[:, :4], frames[:, 4:]),
+                              lambda: fp.pack_frames_batch(frames[:, :4], frames[:, 4:],
+                                                           interpret=True)),
+        "unpack_frames_batch": (lambda: fp.unpack_frames_batch(frames),
+                                lambda: fp.unpack_frames_batch(frames, block=8,
+                                                               interpret=True)),
+        "pack_chunks_batch": (lambda: fp.pack_chunks_batch(meta, ctoks, cnts[:, None]),
+                              lambda: fp.pack_chunks_batch(meta, ctoks, cnts[:, None],
+                                                           block=8, interpret=True)),
+        "ops.decode_run": (lambda: ops.decode_run(wire, 4, 8, 7, 6),
+                           lambda: ops.decode_run(wire, 4, 8, 7, 6, True)),
+        "ops.decode_gather": (lambda: ops.decode_gather(wire, offs, 3),
+                              lambda: ops.decode_gather(wire, offs, 3, interpret=True)),
+        "ops.encode_run": (lambda: ops.encode_run(toks, 12, 12),
+                           lambda: ops.encode_run(toks, 12, 12, True)),
+        "ops.write_headers": (lambda: ops.write_headers(wire, hdrs),
+                              lambda: ops.write_headers(wire_u32=wire, headers=hdrs,
+                                                        interpret=True)),
+        "ops.decode_frames_batch": (lambda: ops.decode_frames_batch(frames),
+                                    lambda: ops.decode_frames_batch(frames, True)),
+        "ops.encode_chunks_batch": (lambda: ops.encode_chunks_batch(meta, ctoks, cnts, 2),
+                                    lambda: ops.encode_chunks_batch(meta, ctoks, cnts, 2,
+                                                                    True)),
+        "ops.decode_message_kernel": (lambda: ops.decode_message_kernel(lanes, plan),
+                                      lambda: ops.decode_message_kernel(lanes, plan, None,
+                                                                        True)),
+        "ops.decode_batch_kernel": (lambda: ops.decode_batch_kernel(flat, row, bplan),
+                                    lambda: ops.decode_batch_kernel(flat, row, bplan,
+                                                                    interpret=True)),
+    }
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(_keyword_calls()))
+def test_reference_keywords_change_nothing(name):
+    """A call written with the reference's keywords (``wire_u32=``,
+    ``interpret=``, ``block=``) gives what the call without them gives."""
+    plain, keyed = _keyword_calls()[name]
+    assert _same(plain(), keyed())
+
+
+def test_encode_frames_batch_sixth_positional_is_interpret():
+    """``encode_frames_batch(p, n, r, 1, 16, True)`` means ``interpret=True``
+    as in the reference: ``adaptive`` stays off (the route words' top bit)."""
+    rng = np.random.default_rng(8)
+    pay = rng.integers(0, 2**32, (3, 40), dtype=np.uint32)
+    nbytes = np.array([160, 7, 0], np.int32)
+    routes = np.array([[0, 1, 5], [2, 3, 65535], [1, 0, 0]], np.int32)
+    got, n = ops.encode_frames_batch(_t(pay), nbytes, routes, 1, 16, True)
+    plain, pn = ops.encode_frames_batch(_t(pay), nbytes, routes, 1, 16)
+    want, wn = j_ops.encode_frames_batch(jnp.asarray(pay), jnp.asarray(nbytes),
+                                         jnp.asarray(routes), 1, 16, True)
+    assert torch.equal(got, plain) and torch.equal(n, pn)
+    np.testing.assert_array_equal(lanes_u32(got), np.asarray(want))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(wn))
+    assert not (lanes_u32(got)[..., 3] >> 31).any()
+    adaptive, _ = ops.encode_frames_batch(_t(pay), nbytes, routes, 1, 16, True, True)
+    assert (lanes_u32(adaptive)[..., 3] >> 31).all()

@@ -210,6 +210,37 @@ def test_cli_sharded_on_cpu(capsys):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("overlap", [True, False], ids=["overlap", "sync"])
+def test_streaming_serve_packs_each_tick_in_one_call(two_layer_models, monkeypatch, overlap):
+    """``--streaming --n-shards 3 --logprobs`` on the CPU: the same bytes as
+    the batched plane, with every lane of a tick (token and logprob lanes
+    of three shards) packed by one ``encode_fragment_bursts`` call, at most
+    one per tick plus the drain; the per-lane encoders never run."""
+    from repro_torch.stream import plane
+
+    _, _, cfg, tparams = two_layer_models
+    wires = _shard_wires(cfg)
+    base = tserve.serve_requests(tparams, cfg, wires, device="cpu", **_SHARD_KW)
+    calls = []
+    inner = plane.encode_fragment_bursts
+
+    def counted(items, device=None):
+        calls.append(len(items))
+        return inner(items, device)
+
+    def refuse(*a, **k):
+        raise AssertionError("a lane was encoded on its own")
+
+    monkeypatch.setattr(plane, "encode_fragment_bursts", counted)
+    monkeypatch.setattr(plane, "encode_fragment_burst", refuse)
+    monkeypatch.setattr(plane, "encode_chunk_burst", refuse)
+    fab = tserve.default_serve_fabric(3, device="cpu")
+    got = tserve.serve_requests_streaming(tparams, cfg, wires, fabric=fab, logprobs=True,
+                                          overlap=overlap, device="cpu", **_SHARD_KW)
+    assert got == base
+    assert 1 <= len(calls) <= fab.ticks + 1 and max(calls) >= 2
+
+
 def test_entry_points_default_to_cuda(models):
     _, _, cfg, tparams = models
     if torch.cuda.is_available():

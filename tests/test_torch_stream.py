@@ -11,6 +11,8 @@ the port's fabric must produce the reference's events over the JAX fabric
 smoke yi-6b cut to 2 layers, float32, TF32 off, with the reference's
 parameters carried over: final wires, ``on_token`` order, overlap,
 logprobs, backpressure with defection, and a blackout that recovers.
+The multi-lane encoder (``encode_fragment_bursts``) must give every lane
+the reference's burst, and ``flush_lanes`` the reference's sends.
 Tokens and wires are compared bit for bit; float32 logprobs within
 ``atol=rtol=1e-5`` (torch and XLA may round the log-softmax differently in
 the last ulp).  The CUDA kernel itself is held to its plain version on the
@@ -490,3 +492,132 @@ def test_cli_streaming_on_cpu(capsys):
     assert "streaming(slots=2): 3 requests, 18 tokens" in out
     assert "time-to-first-token" in out
     assert "logprob side-stream: 18 events" in out
+
+
+# ---------------------------------------------------------------------------
+# one launch per tick: the multi-burst encoder and flush_lanes
+# ---------------------------------------------------------------------------
+
+
+def _burst_items(case, plans_mod, stream_mod, schema_cls):
+    """(plan, fragments) per lane, built alike for either package: token
+    and logprob lanes, an empty lane, EOS-only fragments and a five-word
+    element plan."""
+    rng = np.random.default_rng(len(case))
+    tp, lp = stream_mod.token_stream_plan(), stream_mod.logprob_stream_plan()
+    wide = _plan("wide", stream_mod, plans_mod, schema_cls)
+    lanes = {"mixed": [tp, lp, tp, lp], "empty lanes": [tp, lp, tp],
+             "eos only": [tp, lp], "wide": [wide, tp, wide], "one lane": [lp]}[case]
+    items = []
+    for i, plan in enumerate(lanes):
+        n_frags = 0 if case == "empty lanes" and i != 1 else int(rng.integers(1, 7))
+        frags = []
+        for k in range(n_frags):
+            n = 0 if case == "eos only" else int(rng.integers(0, 5))
+            if plan.n_leaves == 1:
+                toks = tuple(int(t) for t in rng.integers(0, 1 << 32, n, dtype=np.uint64))
+            else:
+                toks = tuple(tuple(int(rng.integers(0, 1 << (8 * nb), dtype=np.uint64))
+                                   for nb in plan.leaf_nbytes) for _ in range(n))
+            frags.append(plans_mod.Fragment((i << 16) | k, k, toks,
+                                            eos=(case == "eos only" or k == n_frags - 1)))
+        items.append((plan, frags))
+    return items
+
+
+@pytest.mark.parametrize("case", ["mixed", "empty lanes", "eos only", "wide", "one lane"])
+def test_fragment_bursts_match_reference(case, monkeypatch):
+    """``encode_fragment_bursts`` gives each lane the reference's
+    ``encode_fragment_burst`` bytes (and ``encode_chunk_burst``'s for token
+    lanes), packing all lanes in one call of the trimmed form."""
+    from repro.core import Schema as JSchema
+
+    items = _burst_items(case, tsp, tstream, Schema)
+    jitems = _burst_items(case, jsp, jstream, JSchema)
+    calls = []
+    inner = ops.encode_chunks_trimmed
+    monkeypatch.setattr(ops, "encode_chunks_trimmed", lambda *a: (calls.append(1), inner(*a))[1])
+    got = tsp.encode_fragment_bursts(items, device="cpu")
+    want = [jsp.encode_fragment_burst(p, f) if f else b"" for p, f in jitems]
+    assert got == want and len(calls) == (1 if any(f for _, f in items) else 0)
+    for (plan, frags), burst in zip(jitems, want):
+        if plan is jstream.token_stream_plan():
+            chunks = [jstream.TokenChunk(f.stream_id, f.step, f.tokens, f.eos) for f in frags]
+            assert burst == (jstream.encode_chunk_burst(chunks) if chunks else b"")
+        assert burst == tsp.encode_fragment_burst(plan, frags, device="cpu")
+    assert tsp.encode_fragment_bursts([], device="cpu") == []
+
+
+def test_fragment_bursts_validate_before_packing(monkeypatch):
+    """A bad fragment in any lane raises the reference's message before
+    anything is packed."""
+    plan = tstream.token_stream_plan()
+    monkeypatch.setattr(ops, "encode_chunks_trimmed",
+                        lambda *a: pytest.fail("packed before validating"))
+    good = [tstream.TokenChunk(1, 0, (7,))]
+    bad = [tstream.TokenChunk(2, 1 << 16, (1, 2))]
+    with pytest.raises(ValueError) as want:
+        jsp.encode_fragment_burst(jstream.token_stream_plan(), bad)
+    with pytest.raises(ValueError) as got:
+        tsp.encode_fragment_bursts([(plan, good), (plan, bad)], device="cpu")
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="exceeds"):
+        tsp.encode_fragment_bursts([(plan, [tstream.TokenChunk(1, 0, (0,) * (1 << 16))])],
+                                   device="cpu")
+
+
+class _Box:
+    """A mailbox that records its sends (the lanes' only use of it)."""
+
+    def __init__(self, rank, log):
+        self.rank, self.log = rank, log
+        self.fabric = type("F", (), {"router": type("R", (), {"device": torch.device("cpu")})})
+
+    def send(self, dst, wire, list_level=1):
+        self.log.append((self.rank, dst, bytes(wire), list_level))
+
+
+def _flush_run(lane_mod, stream_mod, scenario, flush):
+    """Lanes of two shards (token plans at two levels, one of them clamped,
+    a logprob lane, an empty lane) over 8 ticks, then the drain; returns the
+    sends in order, what each flush returned, and the lanes' counters."""
+    rng = np.random.default_rng(21)
+    log = []
+    clamp = {"trickle": dict(clamp_chunks=1), "hold": dict(clamp_chunks=0, max_hold=2),
+             "unclamped": dict(clamp_chunks=1)}[scenario]
+    lanes = [lane_mod.ChunkLane(_Box(1, log), 0, list_level=1),
+             lane_mod.ChunkLane(_Box(2, log), 0, list_level=2, p95_threshold=1.0, **clamp),
+             lane_mod.ChunkLane(_Box(1, log), 0, list_level=254,
+                                plan=stream_mod.logprob_stream_plan()),
+             lane_mod.ChunkLane(_Box(3, log), 0, list_level=1)]
+    writers = [lanes[i].writer(sid) for i in (0, 1, 2) for sid in (5, 6)]
+    sent = []
+    for tick in range(8):
+        lanes[1].feedback(9.0 if scenario != "unclamped" and 1 <= tick <= 5 else 0.0)
+        for w in writers:
+            if not w.closed and rng.random() < 0.8:
+                elems = ([(int(rng.integers(0, 64000)), int(rng.integers(0, 2**32)))]
+                         if w.lane is lanes[2] else [int(rng.integers(0, 64000))])
+                w.write(elems, eos=tick >= 6 and rng.random() < 0.5)
+        sent.append(flush(lanes, False))
+    sent.append(flush(lanes, True))
+    return log, sent, [(lane.holds, lane.flushes, len(lane._pending)) for lane in lanes]
+
+
+@pytest.mark.parametrize("scenario", ["trickle", "hold", "unclamped"])
+def test_flush_lanes_sends_as_lane_flushes(scenario):
+    """``flush_lanes`` makes the same ``mailbox.send`` calls, in the same
+    order, with the same counts and lane state, as ``ChunkLane.flush`` on
+    each lane in turn, in the port and in the reference."""
+    from repro_torch.stream import plane as tplane
+
+    def one_by_one(lanes, force):
+        return sum(lane.flush(force=force) for lane in lanes)
+
+    want = _flush_run(jstream, jstream, scenario, one_by_one)
+    assert _flush_run(tplane, tstream, scenario, one_by_one) == want
+    assert _flush_run(tplane, tstream, scenario, tplane.flush_lanes) == want
+    log, sent, state = want
+    assert len(log) > 8 and sum(sent) > 0
+    if scenario != "unclamped":
+        assert state[1][0] >= 2  # the clamped lane held chunks back
