@@ -12,8 +12,11 @@ What it does, in order (any failed check raises and the exit code is 1):
    calls the main paths make (recorded by the wrappers during one serve DES
    and one record decode) and at one large shape (a 256 MiB wire; B1 also
    at a strided one, 2**22 rows of 8 bytes at a pitch of 64).  Prints each
-   kernel's time (CUDA events), its byte bound at the card's memory rate
-   and its plain version's time, and what one wrapper call costs on the
+   kernel's time (CUDA events), its byte bound at the card's memory rate,
+   its plain version's time and its library route's (B1: the strided word
+   view & mask; B2: the byte-strided view, made contiguous, as int32, &
+   mask; B3: the advanced-index byte gather, as int32, & mask; each checked
+   equal to the kernel first), and what one wrapper call costs on the
    host, part by part (checks, allocation, stream handle, entry point,
    ctypes call; host clock, means over many calls).
 3. Serve: ``repro_torch.launch.serve.serve_requests`` on yi-6b at full width
@@ -92,6 +95,25 @@ What it does, in order (any failed check raises and the exit code is 1):
    2**20 headers, ordered as a framer writes them and then shuffled, one
    launch per call), with their times, bounds and plain and library
    times.
+11. Telemetry (after phase 7, on the same parameters and wires): the
+   streaming serve (overlap and logprobs on) untraced, with ``metrics``,
+   ``trace``, ``spans`` and ``analyze=True`` twice, and untraced again:
+   the same wires (all == the batched plane's), the same kernel
+   launches, ticks and ``exchange_async``/``poll`` calls; the trace and the metrics snapshot
+   validate; every request span starts, has ``fabric.deliver`` and
+   ``serve.first_token`` events and finishes, and its tick breakdown adds
+   up to its ticks; ``evaluate_slo`` on a fixed spec gives a report;
+   ``environment_meta()`` names the card.  Then
+   ``serve_requests_sharded(analyze=True, trace=...)``: the batched
+   plane's bytes and the untraced run's launches, one ``fabric.tick`` per
+   fabric tick.  Then ``python -m repro_torch.analysis --strict`` (its
+   JSON into a temporary directory) and ``python -m repro_torch.obs`` on
+   the written snapshot (``--validate``, the report), trace, SLO and span
+   export, all at once as subprocesses; each must exit 0.  Prints host ms
+   per tick of each run, the host ms per tick spent inside the telemetry
+   calls (trace, spans, ``analyze_sends``), trace events per tick and the
+   trace's split of a streaming tick into ``fabric.tick`` and the rest,
+   each beside the card's name and power limit.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -99,11 +121,14 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -200,6 +225,8 @@ BURST_LARGE = (1 << 20, 64)
 PACK_LARGE = ((1 << 24, 13, 16), (1 << 24, 8, 16))
 RECORD_LIST_SCHEMA = {"Recs": [["hdr", ["Bytes", 3]], ["recs", ["List", ["Bytes", 13]]]]}
 STAMP_LARGE_WORDS, STAMP_LARGE_HEADERS = 1 << 26, 1 << 20
+# telemetry (phase 11): the fixed SLO the traced streaming serve is held to
+SLO_SPEC = "ttft_p95_s=60,tokens_per_s_min=1,arrive_p95_steps=64,drift_free"
 
 
 def log(msg: str) -> None:
@@ -331,6 +358,55 @@ def lane_mask_i32(nbytes: int, dev) -> torch.Tensor:
                          for j in range(nlanes)], dtype=torch.int32, device=dev)
 
 
+def wire_bytes(wire: torch.Tensor, end: int) -> torch.Tensor:
+    """The wire's bytes as uint8, zero-padded to at least ``end`` bytes
+    (a read past the wire reads zeros, as in the kernels)."""
+    u8 = wire.view(torch.uint8)
+    if end > u8.numel():
+        u8 = torch.cat([u8, u8.new_zeros(end - u8.numel())])
+    return u8
+
+
+def byte_view_ms(wire: torch.Tensor, args: tuple, reps: int) -> float:
+    """PyTorch calls computing a run at any byte base and stride (B2): the
+    byte-strided view of the wire, copied into contiguous rows (a fresh
+    copy: a view at an unaligned byte offset cannot be viewed as int32),
+    viewed as int32 and ANDed with the lane mask (the padded byte view and
+    the mask are inputs)."""
+    base, stride, count, nbytes = args
+    mask = lane_mask_i32(nbytes, wire.device)
+    width = 4 * mask.shape[0]
+    u8 = wire_bytes(wire, base + stride * max(count - 1, 0) + width)
+
+    def run():
+        rows = torch.as_strided(u8, (count, width), (stride, 1), base)
+        return torch.bitwise_and(
+            rows.clone(memory_format=torch.contiguous_format).view(torch.int32), mask)
+
+    check(torch.equal(run(), pu.unpack_run_general(wire, *args)),
+          "byte view & mask differs from unpack_run_general")
+    return time_ms(run, reps)
+
+
+def byte_gather_ms(wire: torch.Tensor, args: tuple, reps: int) -> float:
+    """PyTorch calls computing one row per byte offset (B3): the advanced
+    index ``wire_u8[offsets[:, None] + arange(4 * nlanes)]``, viewed as
+    int32 and ANDed with the lane mask (the padded byte view, the column
+    index and the mask are inputs)."""
+    offsets, nbytes = args
+    mask = lane_mask_i32(nbytes, wire.device)
+    cols = torch.arange(4 * mask.shape[0], device=wire.device)
+    end = int(offsets.max()) + cols.numel() if offsets.numel() else 0
+    u8 = wire_bytes(wire, end)
+
+    def run():
+        return torch.bitwise_and(u8[offsets[:, None] + cols].view(torch.int32), mask)
+
+    check(torch.equal(run(), pu.unpack_gather(wire, *args)),
+          "byte gather & mask differs from unpack_gather")
+    return time_ms(run, reps)
+
+
 def strided_and_ms(wire: torch.Tensor, args: tuple, reps: int) -> float:
     """One PyTorch call computing an aligned run: the strided view of the
     rows' words ANDed with the lane mask (the view and mask are inputs)."""
@@ -340,6 +416,14 @@ def strided_and_ms(wire: torch.Tensor, args: tuple, reps: int) -> float:
     check(torch.equal(torch.bitwise_and(view, mask), pu.unpack_run_aligned(wire, *args)),
           "strided view & mask differs from unpack_run_aligned")
     return time_ms(lambda: torch.bitwise_and(view, mask), reps)
+
+
+#: DES kernel -> (its one-call library route, the route's name)
+DES_LIBRARY = {
+    "unpack_run_aligned": (strided_and_ms, "strided view & mask"),
+    "unpack_run_general": (byte_view_ms, "byte view & mask"),
+    "unpack_gather": (byte_gather_ms, "byte gather & mask"),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -417,12 +501,12 @@ def phase_kernels(dev, main):
     for name in pu.LAUNCHES:
         m = measure(name, main[name], reps=200)
         lg = measure(name, large[name], reps=20)
-        m["library_ms"] = lg["library_ms"] = None
-        if name == "unpack_run_aligned":
-            m["library_ms"] = sum(strided_and_ms(a[0], a[1:], 200) for a in main[name])
-            lg["library_ms"] = strided_and_ms(big, large[name][0][1:], 20)
+        library, route = DES_LIBRARY[name]
+        m["library_ms"] = sum(library(a[0], a[1:], 200) for a in main[name])
+        lg["library_ms"] = library(big, large[name][0][1:], 20)
+        torch.cuda.empty_cache()
         rows[name] = {"main": m, "large": lg}
-        log_rows(name, rows[name], "large (256 MiB wire)", "strided view & mask")
+        log_rows(name, rows[name], "large (256 MiB wire)", route)
         if name == "unpack_run_aligned":
             st = measure(name, strided, reps=20)
             st["library_ms"] = strided_and_ms(big, strided[0][1:], 20)
@@ -744,10 +828,11 @@ def phase_fabric(dev):
     return launches, [a for k, a in made if k == "pack_frames_batch"]
 
 
-def sharded_run(dev, params, cfg, wires, base, placement, label: str):
+def sharded_run(dev, params, cfg, wires, base, placement, label: str, telemetry=None):
     """One sharded serve on a fresh default serve fabric, every response
-    held to the batched plane's; returns its launches and the frame
-    kernels' recorded calls."""
+    held to the batched plane's; ``telemetry`` (keyword arguments such as
+    ``trace``, ``analyze``) goes to the serve.  Returns its launches, the
+    frame kernels' recorded calls and the fabric."""
     fab = serve.default_serve_fabric(N_SHARDS, device=dev)
     tick_s = []
     exchange = fab.exchange
@@ -767,7 +852,8 @@ def sharded_run(dev, params, cfg, wires, base, placement, label: str):
     with fp.recording() as made:
         resp = serve.serve_requests_sharded(params, cfg, wires, max_new=MAX_NEW,
                                             pad_to=PAD_TO, slots=SLOTS, fabric=fab,
-                                            placement=placement, device=dev)
+                                            placement=placement, device=dev,
+                                            **(telemetry or {}))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
@@ -789,7 +875,7 @@ def sharded_run(dev, params, cfg, wires, base, placement, label: str):
         f"tick; host ms per tick mean "
         f"{1e3 * sum(tick_s) / ticks:.3f} max {1e3 * max(tick_s):.3f}, fabric total "
         f"{1e3 * sum(tick_s):.3f} ms of {1e3 * dt:.3f} ms")
-    return launches, made
+    return launches, made, fab
 
 
 def phase_sharded(dev, params, cfg, wires, base):
@@ -804,10 +890,13 @@ def phase_sharded(dev, params, cfg, wires, base):
     return [r[0] for r in runs], [c for r in runs for c in r[1]]
 
 
-def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool):
+def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool,
+                  telemetry=None):
     """One streaming serve on a fresh default serve fabric; every check of
-    phase 7.  Returns its launches, the kernel calls it made (recorded),
-    its numbers, and every (plan, chunks) -> burst its lanes shipped."""
+    phase 7.  ``telemetry`` (keyword arguments such as ``trace``,
+    ``spans``, ``metrics``, ``analyze``) goes to the serve.  Returns its
+    launches, the kernel calls it made (recorded), its numbers, and every
+    (plan, chunks) -> burst its lanes shipped."""
     fab = serve.default_serve_fabric(N_SHARDS, device=dev)
     host_s = {"exchange_async": [], "poll": []}
     for name in host_s:
@@ -823,7 +912,7 @@ def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool):
     shards = list(range(1, fab.n_ranks))
     placed = serve.place_requests(fab.router, len(wires), shards, capacity=SLOTS,
                                   weights=[N_PROMPTS] * len(wires))
-    label = f"overlap={overlap} logprobs={logprobs}"
+    label = f"overlap={overlap} logprobs={logprobs}" + (" traced" if telemetry else "")
     log(f"[stream] {label}: requests per shard "
         f"{ {s: placed.count(s) for s in shards} }")
     toks, first, lps = {}, {}, {}
@@ -861,7 +950,7 @@ def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool):
         resp = serve.serve_requests_streaming(
             params, cfg, wires, max_new=MAX_NEW, pad_to=PAD_TO, slots=SLOTS, fabric=fab,
             overlap=overlap, logprobs=logprobs, on_token=on_token,
-            on_logprob=on_logprob if logprobs else None, device=dev)
+            on_logprob=on_logprob if logprobs else None, device=dev, **(telemetry or {}))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
@@ -898,7 +987,9 @@ def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool):
               "poll_ms": 1e3 * sum(polls) / max(1, len(polls)), "polls": len(polls),
               "b7": launches["chunk_bursts"], "b7_tick": launches["chunk_bursts"] / ticks,
               "flush_ms_tick": 1e3 * sum(flush_s) / ticks, "flushes": len(flush_s),
-              "per_shard": {s: placed.count(s) for s in shards}}
+              "per_shard": {s: placed.count(s) for s in shards},
+              "exchanges": fab.exchanges, "polls_n": len(polls),
+              "exchange_async_n": len(host_s["exchange_async"])}
     log(f"[stream] {label}: {len(wires)} requests, {n_out} tokens in {dt:.3f} s: "
         f"{result['req_s']:.3f} req/s, {result['tok_s']:.1f} tok/s; every wire == the "
         f"batched plane's, every stream == its sequence" + ("; logprobs == token stream, "
@@ -932,6 +1023,189 @@ def phase_streaming(dev, params, cfg, wires, base):
     calls = [args for r in runs for name, args in r[1] if name == "chunk_bursts"]
     framing = [args for r in runs for name, args in r[1] if name == "frame_batch"]
     return [r[0] for r in runs], calls, framing, [x for r in runs for x in r[3]]
+
+
+def tick_split(events) -> dict:
+    """The trace's own split of the streaming serve's compute ticks: the
+    ``serve.tick`` time, the part of it that ``fabric.tick`` events cover
+    (a fabric tick runs from its dispatch to its readback, so in the
+    overlapped pipeline it spans the next tick's decode), and the rest, in
+    ms per serve tick; and the mean ``fabric.tick``."""
+    def spans(name):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events if e["name"] == name]
+
+    serve_t, fabric_t = spans("serve.tick"), spans("fabric.tick")
+    covered = sum(max(0.0, min(b, d) - max(a, c)) for a, b in serve_t for c, d in fabric_t)
+    total = sum(b - a for a, b in serve_t)
+    n = max(1, len(serve_t))
+    return {"serve_ticks": len(serve_t), "fabric_ticks": len(fabric_t),
+            "serve_ms": total / n / 1e3, "fabric_in_serve_ms": covered / n / 1e3,
+            "rest_ms": (total - covered) / n / 1e3,
+            "fabric_ms": sum(d - c for c, d in fabric_t) / max(1, len(fabric_t)) / 1e3}
+
+
+def run_clis(commands) -> None:
+    """Run ``python -m <module> <args>`` for each command, all at once,
+    from ``repro_torch`` alone (PYTHONPATH is the checkout's ``src``); each
+    must exit 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [(cmd, subprocess.Popen([sys.executable, "-m", *cmd], env=env, text=True,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+             for cmd in commands]
+    try:
+        for cmd, proc in procs:
+            out, _ = proc.communicate(timeout=300)
+            lines = out.strip().splitlines()
+            check(proc.returncode == 0,
+                  f"python -m {' '.join(cmd)} exited {proc.returncode}:\n{out[-2000:]}")
+            log(f"[telemetry] python -m {' '.join(cmd[:2])}: exit 0, {len(lines)} lines, "
+                f"last: {lines[-1] if lines else ''}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Sum the host time spent inside the given methods and functions
+    (``(owner, names)`` pairs), outermost calls only, while the block runs;
+    yields ``{"s": seconds, "calls": n}``."""
+    acc, depth = {"s": 0.0, "calls": 0}, [0]
+
+    def timed(inner):
+        def call(*a, **k):
+            if depth[0]:
+                return inner(*a, **k)
+            depth[0] += 1
+            t = time.perf_counter()
+            try:
+                return inner(*a, **k)
+            finally:
+                acc["s"] += time.perf_counter() - t
+                acc["calls"] += 1
+                depth[0] -= 1
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for owner, names in targets:
+            for name in names:
+                stack.enter_context(mock.patch.object(owner, name, timed(getattr(owner, name))))
+        yield acc
+
+
+def phase_telemetry(dev, params, cfg, wires, base, card: str, sharded_launches: dict):
+    """Phase 11: the streaming serve untraced, with metrics, trace, spans
+    and analyze=True twice, and untraced again (off, on, on, off), and the
+    sharded serve with analyze=True and a trace; their checks, numbers and
+    the analysis and obs CLIs.  Returns every run's launches."""
+    from repro_torch.analysis import fabric_passes
+    from repro_torch.obs import (MetricsRegistry, SpanTracker, TraceRecorder,
+                                 environment_meta, evaluate_slo, tick_breakdown,
+                                 validate_snapshot, validate_trace)
+
+    # the telemetry entry points the serve and the fabric call when it is on
+    hooks = [(TraceRecorder, ("now_us", "instant", "complete", "counter")),
+             (SpanTracker, ("start", "event", "finish", "degrade", "add_component",
+                            "anomaly", "set_tick")),
+             (fabric_passes, ("analyze_sends",))]
+    runs, inside = [], []
+    for traced in (False, True, True, False):
+        tel = None
+        if traced:
+            trace = TraceRecorder()
+            tel = dict(trace=trace, spans=SpanTracker(trace), metrics=MetricsRegistry(),
+                       analyze=True)
+        with timed_calls(hooks) as acc:
+            runs.append((streaming_run(dev, params, cfg, wires, base, overlap=True,
+                                       logprobs=True, telemetry=tel), tel))
+        if traced:
+            inside.append(acc)
+    off, on = runs[0][0], runs[1][0]
+    trace, spans, metrics = (runs[1][1][k] for k in ("trace", "spans", "metrics"))
+    # every run's wires equal the batched plane's (streaming_run), so each other's
+    for (run, _) in runs[1:]:
+        check(run[0] == off[0], f"telemetry changed the launches: {run[0]} vs {off[0]}")
+        for key in ("ticks", "exchanges", "exchange_async_n", "polls_n"):
+            check(run[2][key] == off[2][key], f"telemetry changed the {key}: "
+                                              f"{run[2][key]} vs {off[2][key]}")
+    reqs = spans.requests()
+    check(len(reqs) == len(wires) and not spans.anomalies, "spans: not one per request")
+    for sp in reqs:
+        names = [e.name for e in sp.events]
+        check(names[0] == "request" and sp.done and not sp.degraded
+              and "serve.first_token" in names and "fabric.deliver" in names,
+              f"span {sp.rid}: {names}")
+        bd = tick_breakdown(sp)
+        check(sum(v for k, v in bd.items() if k != "ttft_ticks") == bd["ttft_ticks"]
+              == sp.first_tick("serve.first_token") - sp.first_tick("serve.ingress"),
+              f"span {sp.rid}: tick breakdown {bd} does not add up")
+    obj = trace.to_json()
+    check(validate_trace(obj) == [], "trace does not validate")
+    snap = metrics.snapshot()
+    snap["meta"] = meta = environment_meta()
+    check(validate_snapshot(snap) == [], "metrics snapshot does not validate")
+    check(meta["platform"] == "gpu" and meta["backend"] == "cuda"
+          and meta["device_kind"] == torch.cuda.get_device_name(0),
+          f"environment_meta does not name the card: {meta}")
+    slo = evaluate_slo(SLO_SPEC, snapshot=snap)
+    check(len(slo.results) == 4 and all(r.observed is not None for r in slo.results),
+          f"SLO report incomplete: {slo.render_text()}")
+    for line in slo.render_text().splitlines():
+        log(f"[telemetry] {line}")
+    split = tick_split(obj["traceEvents"])
+    check(split["fabric_ticks"] == on[2]["exchanges"], "not one fabric.tick per fabric tick")
+    by_name = {}
+    for e in obj["traceEvents"]:
+        by_name[e["name"]] = by_name.get(e["name"], 0) + 1
+    ticks = on[2]["ticks"]
+    order = ", ".join(f"{'on' if tel else 'off'} {run[2]['wall_ms_tick']:.3f} (fabric "
+                      f"{run[2]['fabric_ms_tick']:.3f})" for run, tel in runs)
+    log(f"[telemetry] streaming serve, host ms per tick in run order: {order}; {ticks} ticks "
+        f"each, the same launches and tick calls; {card}")
+    log(f"[telemetry] host ms per tick inside the telemetry calls (trace, spans, "
+        f"analyze_sends; outermost calls, timed on the host clock): "
+        + ", ".join(f"{1e3 * a['s'] / ticks:.3f} ({a['calls'] / ticks:.1f} calls)"
+                    for a in inside) + f"; {card}")
+    log(f"[telemetry] trace: {len(obj['traceEvents'])} events, "
+        f"{len(obj['traceEvents']) / ticks:.2f} per tick "
+        f"({', '.join(f'{k} {v}' for k, v in sorted(by_name.items()))}); "
+        f"{len(reqs)} request spans, environment_meta {meta['device_kind']}; {card}")
+    log(f"[telemetry] trace split of a streaming tick: serve.tick "
+        f"{split['serve_ms']:.3f} ms ({split['serve_ticks']} ticks), fabric.tick inside it "
+        f"{split['fabric_in_serve_ms']:.3f} ms, the rest {split['rest_ms']:.3f} ms; "
+        f"fabric.tick mean {split['fabric_ms']:.3f} ms ({split['fabric_ticks']} ticks, "
+        f"dispatch to readback); {card}")
+
+    strace = TraceRecorder()
+    s_launches, _, sfab = sharded_run(dev, params, cfg, wires, base, None,
+                                      "default placement traced",
+                                      telemetry=dict(trace=strace, analyze=True))
+    check(s_launches == sharded_launches,
+          f"telemetry changed the sharded launches: {s_launches} vs {sharded_launches}")
+    s_ticks = [e for e in strace.events if e["name"] == "fabric.tick"]
+    check(validate_trace(strace.to_json()) == [] and len(s_ticks) == sfab.exchanges,
+          "sharded trace: invalid, or not one fabric.tick per fabric tick")
+    log(f"[telemetry] sharded serve traced and analyzed: every response == the batched "
+        f"plane's, launches == the untraced run's; fabric.tick mean "
+        f"{sum(e['dur'] for e in s_ticks) / len(s_ticks) / 1e3:.3f} ms over {len(s_ticks)} "
+        f"ticks; {card}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: str(Path(tmp) / f"{k}.json") for k in ("metrics", "trace", "spans")}
+        Path(paths["metrics"]).write_text(json.dumps(snap))
+        trace.save(paths["trace"])
+        Path(paths["spans"]).write_text(json.dumps(spans.export()))
+        run_clis([
+            ["repro_torch.analysis", "--strict", "--json", str(Path(tmp) / "findings.json")],
+            ["repro_torch.obs", paths["metrics"], "--validate"],
+            ["repro_torch.obs", paths["metrics"]],
+            ["repro_torch.obs", paths["trace"], "--validate"],
+            ["repro_torch.obs", "slo", SLO_SPEC, "--metrics", paths["metrics"]],
+            ["repro_torch.obs", "attribution", paths["spans"]],
+        ])
+    return [run[0] for run, _ in runs] + [s_launches]
 
 
 def library_chunks_ms(calls, reps: int) -> float:
@@ -1300,6 +1574,7 @@ def main() -> int:
     streaming_launches, burst_calls, stream_framing, bursts = phase_streaming(
         dev, params, cfg, wires, base)
     path_launches += streaming_launches
+    path_launches += phase_telemetry(dev, params, cfg, wires, base, card, sharded_launches[0])
     del params
     torch.cuda.empty_cache()
     rows.update(phase_frame_kernels(dev, recorded, stream_framing, joins))

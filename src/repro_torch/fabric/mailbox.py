@@ -44,10 +44,16 @@ timeout with capped exponential backoff and dead-letter after
 outlives ``skip_after`` ticks is flagged (``ok=False``) and resynced past.
 With ``arq=False`` (default) all of this is off: flag-only delivery.
 
-Not ported yet (ROADMAP item 11): the static analyzer hooks
-(``analyze=True``), the trace timeline (``trace=``) and request spans.
-The reference's per-bucket recompile log has no counterpart: eager torch
-compiles nothing per tick shape.
+Telemetry, as in the reference: ``analyze=True`` proves the config and
+topology at construction and every tick's demand before dispatch
+(``analysis.fabric_passes``); a ``trace`` (``obs.TraceRecorder``) gets one
+``fabric.tick`` complete event per tick, from dispatch to reassembly, on
+the host clock; ``spans`` (``obs.SpanTracker``) gets a ``fabric.deliver``
+event per correlated delivery, with its flight-recorder components, and
+degrades or anomalies for corrupt ones.  None of them adds a device sync.
+The reference's per-bucket recompile log and its ``fabric.recompile``
+trace instant have no counterpart: eager torch compiles nothing per tick
+shape.
 """
 from __future__ import annotations
 
@@ -150,6 +156,9 @@ class _PartialMsg:
     att: Optional[np.ndarray] = None
     #: route-word seq of the message's first frame (rid correlation key)
     seq0: Optional[int] = None
+    #: degradation detail — WHY ok went False (span annotations)
+    crc_bad: bool = False
+    seq_gap: bool = False
 
 
 def _wire_words(wire: bytes, cap_words: int) -> np.ndarray:
@@ -186,11 +195,6 @@ class Fabric:
                 "pass n_ranks (a ring) or grid (a rank grid), exactly one: on "
                 "one card the rank count cannot default to the device count"
             )
-        if analyze or trace is not None:
-            raise NotImplementedError(
-                "Fabric(analyze=True) and trace= wait for the port of the "
-                "analyzer passes and the trace export (ROADMAP item 11)"
-            )
         if grid is None:
             err = max_ranks_error(n_ranks)
             if err is not None:  # the route-word explanation, before any tensor
@@ -198,6 +202,15 @@ class Fabric:
             grid = (n_ranks,)
         self.router = Router(grid, axis_names, config, device)
         self.config = config
+        #: run the static analyzer on every tick's demand before dispatch
+        #: (and on the config+topology now), raising on ERROR findings
+        #: with the rule's fix hint instead of failing mid-scan
+        self.analyze = analyze
+        if analyze:
+            from ..analysis.fabric_passes import analyze_fabric
+            from ..analysis.findings import assert_clean
+
+            assert_clean(analyze_fabric(self), "Fabric(analyze=True)")
         R = self.router.n_ranks
         self._pending: List[Tuple[int, int, bytes, int]] = []  # (src, dst, wire, level)
         #: per-send metadata parallel to `_pending` (a separate list so
@@ -209,6 +222,9 @@ class Fabric:
         #: reassembly through the route word.
         self._pending_meta: List[dict] = []
         self._send_spans: Dict[Tuple[int, int], List[Tuple[int, int, int]]] = {}
+        #: optional obs.spans.SpanTracker — deliveries with a request_id
+        #: emit fabric.deliver span events (and degrade on corruption)
+        self.spans = None
         # seq counters are per (src, dst) stream so a receiver's expected
         # base never lags: every frame of the (src -> me) stream lands here,
         # keeping the u16 wrap window exact.
@@ -225,8 +241,10 @@ class Fabric:
             ClassWindows(maxlen=256) for _ in range(R)
         ]
         #: host-side telemetry: always-on metrics registry (pass one in to
-        #: share it with the serve loop)
+        #: share it with the serve loop) and an optional obs.trace
+        #: TraceRecorder for the timeline export
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.trace = trace
         #: on-device counter folds (obs.counters layout): all-time per-rank
         #: totals plus a window of per-tick deltas, and the accumulated
         #: STATIC demand matrix of every dispatched tick — the expected
@@ -239,6 +257,7 @@ class Fabric:
         ]
         #: the dispatched-but-not-reassembled tick (device tensors + counts)
         self._inflight: Optional[Tuple] = None
+        self._inflight_meta: Optional[dict] = None
         self.frames_routed = 0
         self.exchanges = 0
         #: fault-injection hook for tests/chaos: (tx, tx_valid) -> tx, applied
@@ -397,6 +416,18 @@ class Fabric:
             self._arq_tick()
         if not self._pending:
             return False
+        if self.analyze:
+            # static pre-flight of this tick's demand: rank ranges, seq
+            # windows, rx capacity — raise with the rule's fix hint BEFORE
+            # dispatch (the pending sends stay queued, so the caller can
+            # drop the offender and retry)
+            from ..analysis.fabric_passes import analyze_sends
+            from ..analysis.findings import assert_clean
+
+            _, fs = analyze_sends(
+                self.router.sizes, self.config, self._pending,
+            )
+            assert_clean(fs, "Fabric.exchange(analyze=True)")
         sends, self._pending = self._pending, []
         metas, self._pending_meta = self._pending_meta, []
         if len(metas) != len(sends):  # a test poked _pending directly
@@ -448,6 +479,11 @@ class Fabric:
         # predicts this traffic should put on every (link, direction)) so
         # `load_drift()` can hold it against the on-device observed side
         self._note_expected(sends, n_live)
+        self._inflight_meta = {
+            "frames": sum(n_live),
+            "sends": len(sends),
+            "t0": self.trace.now_us() if self.trace is not None else 0.0,
+        }
         # seeded chaos: ONE post-fault frame list per rank, consumed by
         # whichever engine dispatches below — injection dynamics are
         # engine-independent by construction
@@ -666,6 +702,7 @@ class Fabric:
         point where delivered frames are materialized as host bytes."""
         kind, ready, *out = self._inflight
         self._inflight = None
+        meta, self._inflight_meta = self._inflight_meta or {}, None
         if ready is not None:
             ready.synchronize()  # this tick's staged outputs, nothing later
         if kind == "fused":  # RX split already happened inside the tick
@@ -673,7 +710,7 @@ class Fabric:
         else:
             rx, rx_cnt, ok, crc_ok, rx_step, rx_att, ctr = out
         self.last_crc_ok = bool(crc_ok.all())
-        self._fold_counters(ctr.cpu().numpy(), kind)
+        self._fold_counters(ctr.cpu().numpy(), kind, meta)
         if not bool(ok.all()):
             raise RuntimeError(
                 "fabric routing failed (undeliverable frame or buffer "
@@ -766,10 +803,12 @@ class Fabric:
                 )
                 if int(mh[j, HDR_CRC]) != zlib.crc32(covered.tobytes()):
                     part.ok = False
+                    part.crc_bad = True
                 if int(seqs[j]) != expected:
                     # gap in the stream (lost/misrouted frame): the message
                     # around it cannot be trusted
                     part.ok = False
+                    part.seq_gap = True
                 expected = (int(seqs[j]) + 1) % SEQ_MOD
                 if size == 0:  # terminator: message complete
                     self._deliver(rank, src, part)
@@ -969,6 +1008,11 @@ class Fabric:
             pass
         self._dead.append(dict(e, src=src, dst=dst))
         self.metrics.counter("fabric.arq.aborts").add(1)
+        if self.spans is not None:
+            self.spans.anomaly(
+                "fabric.arq.abort", src=src, dst=dst, seq0=e["seq0"],
+                retries=e["retries"], rid=e.get("rid"),
+            )
 
     def _arq_tick(self) -> None:
         """Host-side ARQ clockwork, run once per fabric tick BEFORE
@@ -1007,7 +1051,7 @@ class Fabric:
 
     def _arq_skip(self, rank: int, src: int) -> None:
         """Give up on a gap that outlived the whole retransmit schedule:
-        flag the partial (``ok=False``), walk the buffered
+        flag the partial (``ok=False, seq_gap``), walk the buffered
         out-of-order frames legacy-style (every residual hole keeps
         flagging), and resync ``expected`` past them — a dead peer
         degrades the stream instead of wedging it.  Sender convergence
@@ -1017,6 +1061,7 @@ class Fabric:
         expected = self._rx_seq[rank][src]
         part = self._partial[rank][src]
         part.ok = False
+        part.seq_gap = True
         for seq in sorted(ooo, key=lambda s: (s - expected) % SEQ_MOD):
             size, level, pay, step, att = ooo.pop(seq)
             part.level = level
@@ -1027,6 +1072,7 @@ class Fabric:
             part.step = max(part.step, step)
             if seq != expected:
                 part.ok = False
+                part.seq_gap = True
             expected = (seq + 1) % SEQ_MOD
             if size == 0:
                 self._deliver(rank, src, part)
@@ -1062,6 +1108,30 @@ class Fabric:
                      attribution=att, request_id=rid, seq0=part.seq0)
         )
         self._record_arrive(rank, part.level, part.step, att)
+        if self.spans is None:
+            return
+        if rid is not None:
+            self.spans.event(
+                rid, "fabric.deliver", pid=rank,
+                src=src, dst=rank, arrive_step=part.step,
+                **att.components(),
+            )
+            for name, v in att.components().items():
+                self.spans.add_component(rid, f"fabric.{name}", v)
+            if not part.ok:
+                reasons = [r for r, bad in
+                           (("crc", part.crc_bad), ("seq-gap", part.seq_gap))
+                           if bad]
+                self.spans.degrade(rid, ",".join(reasons) or "corrupt",
+                                   src=src, dst=rank)
+        elif not part.ok:
+            # a corrupted message that cannot be correlated back to its
+            # request (e.g. its first frame's route word was mangled) must
+            # surface as a tracker anomaly, never vanish silently
+            self.spans.anomaly(
+                "fabric.deliver.unmatched", src=src, dst=rank,
+                seq0=part.seq0, crc=part.crc_bad, seq_gap=part.seq_gap,
+            )
 
     def _match_rid(self, rank: int, src: int,
                    seq0: Optional[int]) -> Optional[int]:
@@ -1172,10 +1242,10 @@ class Fabric:
             for key, ll in group.items():
                 acc[key] = acc.get(key, 0) + ll.frames
 
-    def _fold_counters(self, ctr: np.ndarray, kind: str) -> None:
+    def _fold_counters(self, ctr: np.ndarray, kind: str, meta: dict) -> None:
         """Fold one tick's per-rank on-device counter block into the
         all-time totals, the per-tick delta window, and the metrics
-        registry."""
+        registry (plus the trace timeline when one is attached)."""
         delta = ctr.astype(np.int64)
         if self.config.arq:
             self._materialize_arq_counters()
@@ -1198,6 +1268,19 @@ class Fabric:
                     if v:
                         m.counter(f"fabric.link.{fname}",
                                   axis=axis, dir=dname).add(v)
+        if self.trace is not None:
+            t0 = meta.get("t0", 0.0)
+            self.trace.complete(
+                "fabric.tick", t0, self.trace.now_us() - t0, cat="fabric",
+                args={
+                    "engine": kind,
+                    "frames": meta.get("frames", 0),
+                    "sends": meta.get("sends", 0),
+                    "delivered": int(
+                        tot[global_index(len(axes), "delivered")]
+                    ),
+                },
+            )
 
     def counters_total(self) -> np.ndarray:
         """All-time per-rank on-device counter block, ``(ranks,

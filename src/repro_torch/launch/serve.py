@@ -40,10 +40,14 @@ Usage:
       --sharded --n-shards 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke --device cpu \
       --streaming --n-shards 3 --logprobs
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke --device cpu \
+      --streaming --n-shards 3 --metrics-json m.json --trace-out t.json \
+      --attribution-json spans.json --slo ttft_p95_s=60,drift_free
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -271,6 +275,28 @@ def place_requests(
     return placement
 
 
+def _analyze_serve(fabric, n_requests: int, context: str) -> None:
+    """The ``analyze=True`` serve hook: statically prove the serving
+    schemas, the fabric config + topology, and the stream-id budget safe
+    before any request crosses a link — raising on ERROR findings with the
+    rule's fix hint.  Also arms the fabric's per-tick demand analysis."""
+    from ..analysis import analyze_schema, assert_clean, finding
+    from ..analysis.fabric_passes import analyze_fabric
+    from ..stream.chunks import STREAM_ID_BITS
+
+    fs = analyze_schema(request_schema(), location=f"{context}.request")
+    fs += analyze_schema(response_schema(), location=f"{context}.response")
+    fs += analyze_fabric(fabric, location=f"{context}.fabric")
+    if n_requests >= (1 << STREAM_ID_BITS):
+        fs.append(finding(
+            "stream-id-width", context,
+            f"{n_requests} requests overflow the u{STREAM_ID_BITS} "
+            f"request lane of the (request | prompt) stream-id packing",
+        ))
+    assert_clean(fs, context)
+    fabric.analyze = True  # per-tick demand checks from here on
+
+
 def default_serve_fabric(
     n_shards: Optional[int] = None, routing: str = "shortest",
     defect_after: int = 0, analyze: bool = False, arq: bool = True,
@@ -283,17 +309,14 @@ def default_serve_fabric(
     congestion-aware direction defection; ``arq=True`` (the serving
     default) turns on reliable delivery, so seeded chaos (``faults``, a
     ``fabric.faults.FaultPlan``) costs latency, not correctness.
+    ``analyze=True`` proves the fabric's config and topology at
+    construction and every tick's demand before dispatch.
 
     The reference sizes the fabric by its devices; here the ranks are a
     tensor axis on one card, so the count is ``n_shards + 1`` alone.
     Returns None when fewer than 2 ranks result (no shard to route to)."""
     from ..fabric import Fabric, FabricConfig
 
-    if analyze:
-        raise NotImplementedError(
-            "analyze=True waits for the port of the analyzer passes "
-            "(ROADMAP item 11)"
-        )
     n_ranks = (n_shards + 1) if n_shards else 8
     if n_ranks < 2:
         return None
@@ -301,6 +324,7 @@ def default_serve_fabric(
         n_ranks=n_ranks,
         config=FabricConfig(frame_phits=16, routing=routing,
                             defect_after=defect_after, arq=arq),
+        analyze=analyze,
         device=device,
     )
     fab.faults = faults
@@ -348,17 +372,14 @@ def serve_requests_sharded(
 
     With fewer than 2 ranks (no shard to route to) this is the batched
     plane, as in the reference.  ``device`` (default: the card) must hold
-    ``params`` and the fabric's tensors.  ``metrics`` shares a
-    ``obs.MetricsRegistry`` with the fabric; ``analyze=True`` and
-    ``trace=`` wait for ROADMAP item 11 and raise.
+    ``params`` and the fabric's tensors.  ``metrics`` shares an
+    ``obs.MetricsRegistry`` with the fabric; ``trace`` (an
+    ``obs.TraceRecorder``) records one ``fabric.tick`` event per tick;
+    ``analyze=True`` proves the serving schemas, the fabric and every
+    tick's demand before anything is sent (``_analyze_serve``).
     """
     dev = default_device(device)
     _check_params_device(params, dev)
-    if analyze or trace is not None:
-        raise NotImplementedError(
-            "analyze=True and trace= wait for the port of the analyzer "
-            "passes and the trace export (ROADMAP item 11)"
-        )
     if fabric is None:
         fabric = default_serve_fabric(n_shards, routing=routing,
                                       defect_after=defect_after, device=dev)
@@ -372,6 +393,10 @@ def serve_requests_sharded(
                          f"was asked on {dev}")
     if metrics is not None:
         fabric.metrics = metrics
+    if trace is not None:
+        fabric.trace = trace
+    if analyze:
+        _analyze_serve(fabric, len(wires), "serve_requests_sharded")
     shards = list(range(1, fabric.n_ranks))
     ingress = fabric.mailbox(0)
     if placement is None:
@@ -562,19 +587,25 @@ def serve_requests_streaming(
     Returns the final response wires, byte-identical to ``serve_requests``
     on the same inputs; with fewer than 2 ranks this is the batched plane.
     ``device`` (default: the card) must hold ``params`` and the fabric's
-    tensors.  ``metrics`` shares an ``obs.MetricsRegistry`` with the
-    fabric, the batchers, the lanes and the readers; ``analyze=True``,
-    ``trace=`` and ``spans=`` wait for ROADMAP item 11 and raise.
+    tensors.
+
+    Telemetry, as in the reference, none of which changes a byte or adds
+    a device sync: ``metrics`` shares an ``obs.MetricsRegistry`` with the
+    fabric, the batchers, the lanes and the readers; ``spans`` (an
+    ``obs.SpanTracker``) mints one request id per wire at ingress (tick 0)
+    and collects its arc (``serve.ingress``, ``fabric.deliver``,
+    ``batcher.admit``/``evict``, ``stream.first_flush``,
+    ``serve.first_token``, ``serve.retry``, done at the last EOS); a
+    ``trace`` (an ``obs.TraceRecorder``) gets a ``serve.tick`` event per
+    compute tick, a ``stream.chunk`` instant per arriving chunk and the
+    fabric's ``fabric.tick`` events, and creates a ``SpanTracker`` on
+    itself when ``spans`` is None; ``analyze=True`` proves the serving
+    schemas, the fabric and every tick's demand before anything is sent.
     """
     from ..stream import ChunkLane, StreamReader, flush_lanes, logprob_stream_plan
 
     dev = default_device(device)
     _check_params_device(params, dev)
-    if analyze or trace is not None or spans is not None:
-        raise NotImplementedError(
-            "analyze=True, trace= and spans= wait for the port of the "
-            "analyzer passes and the trace and span export (ROADMAP item 11)"
-        )
     if fabric is None:
         fabric = default_serve_fabric(n_shards, routing=routing,
                                       defect_after=defect_after, device=dev)
@@ -588,6 +619,17 @@ def serve_requests_streaming(
                          f"was asked on {dev}")
     if metrics is not None:
         fabric.metrics = metrics  # one registry across the whole stack
+    if trace is not None:
+        fabric.trace = trace
+        if spans is None:
+            from ..obs import SpanTracker
+
+            spans = SpanTracker(trace)
+    if spans is not None:
+        fabric.spans = spans  # deliveries correlate back to request ids
+        spans.set_tick(0)
+    if analyze:
+        _analyze_serve(fabric, len(wires), "serve_requests_streaming")
     shards = list(range(1, fabric.n_ranks))
     ingress = fabric.mailbox(0)
     reqs = decode_request_batch(wires, dev)  # ingress keeps rids + prompt counts
@@ -605,8 +647,16 @@ def serve_requests_streaming(
             f"level {LOGPROB_STREAM_LEVEL} when logprobs=True"
         )
 
+    # ingress -> shards: one span per request at tick 0, each wire tagged
+    # with its request id so every fabric delivery it causes correlates back
+    rid_of: List[Optional[int]] = [None] * len(wires)
     for i, w in enumerate(wires):
-        ingress.send(placement[i], w, list_level=levels[i])
+        if spans is not None:
+            rid_of[i] = spans.start("request", req=i, cls=levels[i],
+                                    shard=placement[i])
+            spans.event(rid_of[i], "serve.ingress", shard=placement[i])
+        ingress.send(placement[i], w, list_level=levels[i],
+                     request_id=rid_of[i])
     fabric.exchange()
 
     # shard setup: per-shard batcher + per-sequence stream writers.  The
@@ -630,15 +680,17 @@ def serve_requests_streaming(
     # retransmitting (skip) — drop them and let the suspect machinery
     # re-place the request instead of poisoning the stream
     on_corrupt = "retry" if arq else "flag"
-    reader = StreamReader(metrics=metrics, on_corrupt=on_corrupt)
+    reader = StreamReader(metrics=metrics, spans=spans, on_corrupt=on_corrupt)
     # the logprob plan gets its own reader; the reserved ListLevel
-    # partitions deliveries between the two
+    # partitions deliveries between the two.  Span accounting stays on the
+    # token reader: one open-stream count per request, not two
     lp_reader = (
         StreamReader(metrics=metrics, plan=logprob_stream_plan(),
                      on_corrupt=on_corrupt)
         if logprobs else None
     )
     lp_writers: Dict[Tuple[int, int, int], object] = {}
+    open_streams: Dict[int, int] = {}  # rid -> streams not yet at EOS
     admitted = {s: 0 for s in shards}  # request wires admitted at s
     suspects: set = set()
     retried: set = set()
@@ -659,7 +711,7 @@ def serve_requests_streaming(
         batcher = batchers.get(s)
         if batcher is None:
             batcher = ContinuousBatcher(params, cfg, sched, metrics=metrics,
-                                        logprobs=logprobs)
+                                        spans=spans, logprobs=logprobs)
             batchers[s] = batcher
         for d, (_, prompts) in zip(arrived, local_reqs):
             k = admitted[s]
@@ -673,12 +725,14 @@ def serve_requests_streaming(
                           max_hold=backpressure_hold,
                           metrics=metrics),
             )
+            lane.spans = spans
             if logprobs:
                 lp_lane = lanes.setdefault(
                     (s, LOGPROB_STREAM_LEVEL),
                     ChunkLane(box, 0, list_level=LOGPROB_STREAM_LEVEL,
                               plan=logprob_stream_plan(), metrics=metrics),
                 )
+            rid = d.request_id if spans is not None else None
             for j, p in enumerate(prompts):
                 batcher.submit((k, j), p)
                 sid = (k << 16) | j
@@ -686,6 +740,11 @@ def serve_requests_streaming(
                 if logprobs:
                     lp_writers[(s, k, j)] = lp_lane.writer(sid)
                 expected.append((s, sid))
+                if rid is not None:
+                    batcher.span_of[(k, j)] = rid
+                    lane.span_ids[sid] = rid
+                    reader.span_ids[(s, sid)] = rid
+                    open_streams[rid] = open_streams.get(rid, 0) + 1
 
     for s in shards:
         _admit(s)
@@ -713,7 +772,11 @@ def serve_requests_streaming(
             keys = [(s, (k << 16) | j) for j in range(len(reqs[i][1]))]
             if k < admitted[s] and all(_stream_done(key) for key in keys):
                 continue
-            abandoned.update(keys)
+            for key in keys:
+                abandoned.add(key)
+                rid = reader.span_ids.get(key)
+                if rid is not None and not _stream_done(key):
+                    open_streams[rid] = open_streams.get(rid, 1) - 1
             if i in retried:
                 raise RuntimeError(
                     f"streaming serve: request {i} failed on shard {s} "
@@ -727,7 +790,11 @@ def serve_requests_streaming(
         for i, s2 in zip(inflight, repl):
             retried.add(i)
             globals_of[s2].append(i)
-            ingress.send(s2, wires[i], list_level=levels[i])
+            if spans is not None and rid_of[i] is not None:
+                spans.event(rid_of[i], "serve.retry", from_shard=s,
+                            to_shard=s2)
+            ingress.send(s2, wires[i], list_level=levels[i],
+                         request_id=rid_of[i])
             fabric.metrics.counter("serve.retries").add(1)
 
     wait_since: Dict[int, int] = {}  # shard -> tick its current debt began
@@ -790,10 +857,25 @@ def serve_requests_streaming(
             tok_count[1] += len(ev.tokens)
             if ev.tokens and key not in seen_first:
                 seen_first.add(key)
+                ttft = time.perf_counter() - t_serve0
                 if metrics is not None:
-                    ttft = time.perf_counter() - t_serve0
                     metrics.histogram("serve.ttft_s", base=0.001).observe(ttft)
                     metrics.series("serve.ttft_s.series").append(ttft)
+                if spans is not None and key in reader.span_ids:
+                    spans.event(reader.span_ids[key], "serve.first_token",
+                                ttft_s=ttft)
+            if ev.eos and spans is not None and key in reader.span_ids:
+                rid = reader.span_ids[key]
+                open_streams[rid] = open_streams.get(rid, 1) - 1
+                if open_streams[rid] <= 0:
+                    spans.finish(rid)
+            if trace is not None:
+                trace.instant(
+                    "stream.chunk", cat="stream", pid=ev.src,
+                    args={"stream": ev.stream_id, "step": ev.step,
+                          "tokens": len(ev.tokens),
+                          "arrive_step": ev.arrive_step},
+                )
             if on_event is not None:
                 on_event(ev)
             if on_token is not None:
@@ -817,6 +899,7 @@ def serve_requests_streaming(
                 st = per_class.get(lane.list_level)
                 lane.feedback(st["p95"] if st else None)
 
+    tick = 0
     idle = 0
     drain_cap = (deadline_ticks or 256) if arq else 3
     force_flushed = False
@@ -829,9 +912,13 @@ def serve_requests_streaming(
                 and (lp_reader is None
                      or lp_reader.all_eos(_live_expected()))):
             break
+        tick += 1
+        if spans is not None:
+            spans.set_tick(tick)  # ingress was tick 0; the loop is 1..N
         if active:
             idle = 0
             force_flushed = False
+            t_tick0 = trace.now_us() if trace is not None else 0.0
             tok_count[1] = 0
             for b in batchers.values():
                 b.step_begin()  # enqueue compute; the card runs it meanwhile
@@ -858,6 +945,10 @@ def serve_requests_streaming(
                 _pump()
             if metrics is not None:
                 metrics.series("serve.tick.tokens").append(tok_count[1])
+            if trace is not None:
+                trace.complete("serve.tick", t_tick0,
+                               trace.now_us() - t_tick0, cat="serve",
+                               args={"tokens_arrived": tok_count[1]})
         else:
             # nothing left to compute: force out any bursts a clamped lane
             # still holds, then keep the fabric ticking so in-flight
@@ -971,10 +1062,36 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="for --streaming: clamp a tenant lane's flush "
                          "rate while its QoS class's p95 arrive latency "
                          "(router steps) exceeds this threshold")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="write the run's metrics snapshot (repro_torch.obs "
+                         "registry + environment meta) as JSON")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome-trace JSON timeline of ticks and "
+                         "chunk arrivals (load in chrome://tracing or "
+                         "ui.perfetto.dev)")
+    ap.add_argument("--attribution-json", default=None, metavar="PATH",
+                    help="for --streaming: write the per-request span "
+                         "export (latency attribution + degradation) as "
+                         "JSON; render with `python -m repro_torch.obs "
+                         "attribution PATH`")
+    ap.add_argument("--slo", default=None, metavar="SPEC",
+                    help="evaluate SLO targets against the run's metrics "
+                         "('k=v,k=v' inline or a JSON file; see "
+                         "repro_torch.obs.slo) and exit 1 on any violation")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs on the host)")
     args = ap.parse_args(argv)
+
+    metrics = trace = spans = None
+    if args.metrics_json or args.trace_out or args.slo or args.attribution_json:
+        from ..obs import MetricsRegistry, SpanTracker, TraceRecorder
+
+        metrics = MetricsRegistry()
+        if args.trace_out:
+            trace = TraceRecorder()
+        if args.attribution_json or args.trace_out:
+            spans = SpanTracker(trace)
 
     dev = default_device(args.device)
     cfg = get_config(args.arch)
@@ -1005,7 +1122,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         resp_wires = serve_requests_streaming(
             params, cfg, wires, max_new=args.max_new, pad_to=args.pad_to,
             slots=args.slots, fabric=fabric, overlap=not args.no_overlap,
-            backpressure_p95=args.backpressure_p95,
+            backpressure_p95=args.backpressure_p95, metrics=metrics,
+            trace=trace, spans=spans,
             suspect_after=suspect_after, deadline_ticks=args.deadline_ticks,
             logprobs=args.logprobs,
             on_logprob=((lambda m, j, step, tok, lp: lp_events.append((tok, lp)))
@@ -1016,8 +1134,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     elif args.sharded:
         resp_wires = serve_requests_sharded(
             params, cfg, wires, max_new=args.max_new, pad_to=args.pad_to,
-            slots=args.slots, fabric=fabric, suspect_after=suspect_after,
-            deadline_ticks=args.deadline_ticks, device=dev)
+            slots=args.slots, fabric=fabric, metrics=metrics, trace=trace,
+            suspect_after=suspect_after, deadline_ticks=args.deadline_ticks,
+            device=dev)
     else:
         resp_wires = serve_requests(params, cfg, wires, max_new=args.max_new,
                                     pad_to=args.pad_to, slots=args.slots, device=dev)
@@ -1040,9 +1159,37 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"[serve] fabric: {fabric.n_ranks} ranks, {fabric.ticks} ticks, "
               f"{fabric.router.scan_steps} router scan steps, "
               f"{fabric.frames_routed} frames routed")
+    if args.metrics_json and metrics is not None:
+        from ..obs.report import environment_meta
+
+        snap = metrics.snapshot()
+        snap["meta"] = environment_meta()
+        with open(args.metrics_json, "w") as f:
+            json.dump(snap, f, indent=1)
+            f.write("\n")
+        print(f"[serve] metrics snapshot -> {args.metrics_json} "
+              f"({len(snap['metrics'])} metrics)")
+    if args.trace_out and trace is not None:
+        trace.save(args.trace_out)
+        print(f"[serve] trace timeline -> {args.trace_out} "
+              f"({len(trace.events)} events)")
+    if args.attribution_json and spans is not None:
+        export = spans.export()
+        with open(args.attribution_json, "w") as f:
+            json.dump(export, f, indent=1)
+            f.write("\n")
+        print(f"[serve] attribution export -> {args.attribution_json} "
+              f"({len(export['requests'])} request span(s))")
     rid, outs = decode_response(resp_wires[0])
     for i, o in enumerate(outs[:2]):
         print(f"  req {rid} out[{i}][:8] = {o[:8]}")
+    if args.slo and metrics is not None:
+        from ..obs import evaluate_slo
+
+        rep = evaluate_slo(args.slo, snapshot=metrics.snapshot())
+        print(rep.render_text())
+        if not rep.ok:
+            raise SystemExit(1)
 
 
 if __name__ == "__main__":

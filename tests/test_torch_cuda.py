@@ -489,6 +489,97 @@ def test_streaming_serve_on_card_is_one_burst_launch_per_tick(cuda_device, monke
 
 
 # ---------------------------------------------------------------------------
+# telemetry on the card: traced serves, launches and host syncs unchanged
+# ---------------------------------------------------------------------------
+
+
+def _untimed(obj):
+    """A span export without its host-clock values."""
+    if isinstance(obj, dict):
+        return {k: _untimed(v) for k, v in obj.items() if k not in ("ts_us", "ttft_s")}
+    if isinstance(obj, list):
+        return [_untimed(v) for v in obj]
+    return obj
+
+
+def _traced_serve(plane, params, cfg, wires, dev, traced, monkeypatch):
+    """One streaming or sharded serve on a fresh fabric; returns the wires,
+    the span export (None untraced), the kernel launches and the host
+    syncs: fabric tick calls and CUDA event and device synchronisations."""
+    from repro_torch.obs import MetricsRegistry, SpanTracker, TraceRecorder
+
+    fab = serve.default_serve_fabric(3, device=dev)
+    syncs = {"exchange": 0, "exchange_async": 0, "poll": 0, "event": 0, "device": 0}
+    for name in ("exchange", "exchange_async", "poll"):
+        inner = getattr(fab, name)
+
+        def counted(inner=inner, name=name):
+            syncs[name] += 1
+            return inner()
+
+        setattr(fab, name, counted)
+    ev_sync, dev_sync = torch.cuda.Event.synchronize, torch.cuda.synchronize
+
+    def event_sync(self):
+        syncs["event"] += 1
+        return ev_sync(self)
+
+    def device_sync(*a, **k):
+        syncs["device"] += 1
+        return dev_sync(*a, **k)
+
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", event_sync)
+    monkeypatch.setattr(torch.cuda, "synchronize", device_sync)
+    tel = {}
+    if traced:
+        tel = dict(trace=TraceRecorder(), metrics=MetricsRegistry(), analyze=True)
+        if plane == "streaming":
+            tel["spans"] = SpanTracker(tel["trace"])
+    fp.reset_launches()
+    pu.reset_launches()
+    kw = dict(max_new=4, pad_to=16, slots=4, fabric=fab, device=dev, **tel)
+    if plane == "streaming":
+        got = serve.serve_requests_streaming(params, cfg, wires, logprobs=True, **kw)
+    else:
+        got = serve.serve_requests_sharded(params, cfg, wires, **kw)
+    monkeypatch.undo()
+    launches = {**pu.LAUNCHES, **fp.LAUNCHES}
+    if traced:
+        from repro_torch.obs import validate_trace
+
+        assert validate_trace(tel["trace"].to_json()) == []
+        ticks = [e for e in tel["trace"].events if e["name"] == "fabric.tick"]
+        assert len(ticks) == fab.exchanges
+    export = _untimed(tel["spans"].export()) if "spans" in tel else None
+    return got, export, launches, syncs
+
+
+@pytest.mark.parametrize("plane", ["streaming", "sharded"])
+def test_traced_serves_on_card_equal_host(cuda_device, plane, monkeypatch):
+    """Trace, spans, metrics and analyze=True on: the card answers with the
+    host's bytes and the untraced card run's; the streaming span export
+    equals the host's, timestamps removed; and telemetry changes neither
+    the kernel launches nor the host syncs (tick calls, event and device
+    synchronisations)."""
+    cfg = smoke_config(get_config("yi-6b"))
+    params_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params_gpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(cuda_device)
+    wires = serve.synthetic_wires(cfg, 5, 3, seed=4)
+    card = _traced_serve(plane, params_gpu, cfg, wires, cuda_device, True, monkeypatch)
+    plain = _traced_serve(plane, params_gpu, cfg, wires, cuda_device, False, monkeypatch)
+    host = _traced_serve(plane, params_cpu, cfg, wires, "cpu", True, monkeypatch)
+    assert card[0] == plain[0] == host[0]
+    assert card[0] == serve.serve_requests(params_cpu, cfg, wires, device="cpu",
+                                           max_new=4, pad_to=16, slots=4)
+    assert card[1] == host[1]
+    assert card[2] == plain[2] and card[2]["frame_batch"] >= 1
+    assert card[2]["unpack_frames_batch"] >= 1 and card[2]["unpack_gather"] >= 1
+    if plane == "streaming":
+        assert card[2]["chunk_bursts"] >= 1 and card[1]["requests"]
+    assert card[3] == plain[3]
+
+
+# ---------------------------------------------------------------------------
 # SER payload run (B4 pack_run), header stamp (B8 stamp_headers) and the
 # device-side encode
 # ---------------------------------------------------------------------------

@@ -481,10 +481,11 @@ def test_fabric_construction_rules():
         Fabric(grid=(2, 2), n_ranks=4, device="cpu")
     with pytest.raises(ValueError, match="128"):
         Fabric(n_ranks=129, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        Fabric(n_ranks=2, analyze=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        Fabric(n_ranks=2, trace=object(), device="cpu")
+    from repro_torch.obs import TraceRecorder
+
+    trace = TraceRecorder()
+    hooked = Fabric(n_ranks=2, analyze=True, trace=trace, device="cpu")
+    assert hooked.analyze and hooked.trace is trace and hooked.spans is None
     fab = Fabric(n_ranks=3, device="cpu")
     with pytest.raises(ValueError, match="empty wire"):
         fab.send(0, 1, b"")

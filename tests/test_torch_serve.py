@@ -191,8 +191,14 @@ def test_sharded_with_one_rank_is_the_batched_plane(two_layer_models):
     got = tserve.serve_requests_sharded(tparams, cfg, wires, device="cpu",
                                         fabric=Fabric(n_ranks=1, device="cpu"), **_SHARD_KW)
     assert got == tserve.serve_requests(tparams, cfg, wires, device="cpu", **_SHARD_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        tserve.serve_requests_sharded(tparams, cfg, wires, device="cpu", analyze=True)
+    from repro_torch.obs import TraceRecorder
+
+    trace = TraceRecorder()
+    got = tserve.serve_requests_sharded(tparams, cfg, wires, device="cpu", analyze=True,
+                                        trace=trace, fabric=Fabric(n_ranks=1, device="cpu"),
+                                        **_SHARD_KW)
+    assert got == tserve.serve_requests(tparams, cfg, wires, device="cpu", **_SHARD_KW)
+    assert trace.events == []  # no fabric tick: the batched plane, as in the reference
 
 
 def test_cli_sharded_on_cpu(capsys):
@@ -295,7 +301,12 @@ new = {{"repro_torch.fabric.frames", "repro_torch.fabric.router",
         "repro_torch.kernels.frame_pack", "repro_torch.analysis.comm",
         "repro_torch.analysis.rules", "repro_torch.obs.counters",
         "repro_torch.obs.metrics", "repro_torch.stream", "repro_torch.stream.chunks",
-        "repro_torch.stream.plane", "repro_torch.core.stream_plans"}}
+        "repro_torch.stream.plane", "repro_torch.core.stream_plans",
+        "repro_torch.obs.trace", "repro_torch.obs.spans", "repro_torch.obs.report",
+        "repro_torch.obs.slo", "repro_torch.obs.__main__",
+        "repro_torch.analysis.schema_passes", "repro_torch.analysis.config_passes",
+        "repro_torch.analysis.fabric_passes", "repro_torch.analysis.targets",
+        "repro_torch.analysis.__main__"}}
 assert new <= set(mods), new - set(mods)
 """
 

@@ -475,9 +475,16 @@ def test_streaming_fallback_and_unported_hooks(setup):
     got = tserve.serve_requests_streaming(tparams, cfg, wires, device="cpu",
                                           fabric=Fabric(n_ranks=1, device="cpu"), **kw)
     assert got == base
-    for bad in (dict(analyze=True), dict(trace=object()), dict(spans=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            tserve.serve_requests_streaming(tparams, cfg, wires, device="cpu", **bad, **kw)
+    from repro_torch.obs import SpanTracker, TraceRecorder
+
+    trace, spans = TraceRecorder(), SpanTracker()
+    got = tserve.serve_requests_streaming(tparams, cfg, wires, device="cpu", analyze=True,
+                                          trace=trace, spans=spans,
+                                          fabric=Fabric(n_ranks=1, device="cpu"), **kw)
+    assert got == base
+    # the one-rank fallback is the batched plane, as in the reference: no
+    # request was traced
+    assert trace.events == [] and spans.requests() == []
     with pytest.raises(ValueError, match="reserved logprob"):
         tserve.serve_requests_streaming(tparams, cfg, wires, device="cpu", n_shards=2,
                                         logprobs=True, qos_levels=[254] * 4, **kw)
