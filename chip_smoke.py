@@ -114,6 +114,26 @@ What it does, in order (any failed check raises and the exit code is 1):
    calls (trace, spans, ``analyze_sends``), trace events per tick and the
    trace's split of a streaming tick into ``fabric.tick`` and the rest,
    each beside the card's name and power limit.
+12. Families (last, after every yi-6b phase): every other ``lm``
+   architecture at full width, its depth cut to fit the card:
+   phi3.5-moe-42b-a6.6b 16 of 32 layers (16 experts top-2 on every one),
+   mixtral-8x22b 4 of 56 (8 experts top-2, window 4096), gemma2-27b 8 of
+   46 (4 local + 4 global, softcaps, sandwich norms), jamba-1.5-large-398b
+   5 of 72 (layers 0-3 Mamba-2, layer 4 attention, MoE on 1 and 3) and
+   xlstm-125m at its full 12.  For each: the float32 smoke model serves
+   the same bytes on the card and the host; seeded bf16 weights from a
+   generator on the card; ``serve_requests`` of 4 wires x 4 prompts of
+   16-256 tokens (``pad_to=256``, ``max_new=16``, 16 slots), whose
+   responses must parse back, whose B1/B3 counts must rise and whose
+   recorded kernel calls must equal the plain versions; the prefill and
+   decode step times; one extra prefill of the served batch, whose logits
+   must be finite and whose ``aux`` gives the MoE models' ``moe_dropped``;
+   then the weights are freed.  mixtral also serves one wire of 4 prompts
+   of 4097-8192 tokens padded to 8192 on 4 slots (the window's ring, four
+   MoE dispatch groups); xlstm also ``serve_requests_sharded`` over 3
+   shards, round-robin, which must answer with the batched plane's bytes.
+   Each line names the card and its power limit, with req/s, tok/s, the
+   step times and the peak memory.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -122,6 +142,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import json
 import os
@@ -161,6 +182,7 @@ from repro_torch.kernels import phit_unpack as pu  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.steps import cached_serve_steps  # noqa: E402
 from repro_torch.models import init_params, param_count  # noqa: E402
+from repro_torch.models import forward as model_forward  # noqa: E402
 from repro_torch.models import prefill as model_prefill  # noqa: E402
 from repro_torch.obs.metrics import window_stats  # noqa: E402
 from repro_torch import stream as stream_pkg  # noqa: E402
@@ -227,6 +249,14 @@ RECORD_LIST_SCHEMA = {"Recs": [["hdr", ["Bytes", 3]], ["recs", ["List", ["Bytes"
 STAMP_LARGE_WORDS, STAMP_LARGE_HEADERS = 1 << 26, 1 << 20
 # telemetry (phase 11): the fixed SLO the traced streaming serve is held to
 SLO_SPEC = "ttft_p95_s=60,tokens_per_s_min=1,arrive_p95_steps=64,drift_free"
+# model families (phase 12): each architecture at full width, its depth cut
+# to fit one card (layers run); 4 wires of phase 3's prompts, MAX_NEW 16
+FAMILY_LAYERS = {"phi3.5-moe-42b-a6.6b": 16, "mixtral-8x22b": 4, "gemma2-27b": 8,
+                 "jamba-1.5-large-398b": 5, "xlstm-125m": 12}
+FAMILY_REQUESTS, FAMILY_MAX_NEW = 4, 16
+# mixtral's long serve: one wire of 4 prompts of 4097-8192 tokens, padded to
+# 8192 (the window, 4096, divides it): its ring and four MoE dispatch groups
+LONG_PROMPT_LENS, LONG_PAD_TO, LONG_SLOTS = (4097, 8193), 8192, 4
 
 
 def log(msg: str) -> None:
@@ -737,15 +767,15 @@ def phase_serve(dev, wires):
     return launches, params, cfg, resp
 
 
-def check_responses(cfg, resp) -> int:
+def check_responses(cfg, resp, max_new: int = MAX_NEW) -> int:
     """Every response parses back with its request id, N_PROMPTS outputs of
-    MAX_NEW in-vocabulary tokens; returns the tokens generated."""
+    ``max_new`` in-vocabulary tokens; returns the tokens generated."""
     n_out = 0
     for m, rw in enumerate(resp):
         rid, outs = serve.decode_response(rw)
         check(rid == m and len(outs) == N_PROMPTS, f"response {m}: bad header")
         for o in outs:
-            check(len(o) == MAX_NEW and all(0 <= t < cfg.vocab for t in o),
+            check(len(o) == max_new and all(0 <= t < cfg.vocab for t in o),
                   f"response {m}: bad tokens")
             n_out += len(o)
     return n_out
@@ -828,7 +858,8 @@ def phase_fabric(dev):
     return launches, [a for k, a in made if k == "pack_frames_batch"]
 
 
-def sharded_run(dev, params, cfg, wires, base, placement, label: str, telemetry=None):
+def sharded_run(dev, params, cfg, wires, base, placement, label: str, telemetry=None,
+                max_new: int = MAX_NEW):
     """One sharded serve on a fresh default serve fabric, every response
     held to the batched plane's; ``telemetry`` (keyword arguments such as
     ``trace``, ``analyze``) goes to the serve.  Returns its launches, the
@@ -850,7 +881,7 @@ def sharded_run(dev, params, cfg, wires, base, placement, label: str, telemetry=
     reset_launches()
     t0 = time.perf_counter()
     with fp.recording() as made:
-        resp = serve.serve_requests_sharded(params, cfg, wires, max_new=MAX_NEW,
+        resp = serve.serve_requests_sharded(params, cfg, wires, max_new=max_new,
                                             pad_to=PAD_TO, slots=SLOTS, fabric=fab,
                                             placement=placement, device=dev,
                                             **(telemetry or {}))
@@ -862,7 +893,7 @@ def sharded_run(dev, params, cfg, wires, base, placement, label: str, telemetry=
           f"sharded serve: {launches['frame_batch']} frame_batch launches for "
           f"{fab.exchanges} dispatched ticks")
     check(launches["pack_frames_batch"] == 0, "sharded serve framed through the join")
-    n_out = check_responses(cfg, resp)
+    n_out = check_responses(cfg, resp, max_new)
     for m, (a, b) in enumerate(zip(resp, base)):
         check(a == b, f"sharded response {m} differs from the batched plane's")
     ticks = len(tick_s)
@@ -1540,6 +1571,163 @@ def library_ser_ms(name: str, calls, reps: int) -> float:
     return time_ms(run_all, reps)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the model families
+# ---------------------------------------------------------------------------
+
+
+def hold_recorded(des_calls, frame_calls) -> None:
+    """Each kernel == its plain version, bit for bit, at the calls a serve
+    made (as the wrappers recorded them)."""
+    calls = [(name, (wire,) + tuple(args)) for name, wire, args in des_calls]
+    calls += [(name, tuple(args)) for name, args in frame_calls]
+    for name, args in calls:
+        _, _, plain, wrapper, _ = KERNELS[name]
+        check(same(wrapper(*args), plain(*args)), f"{name} != plain at a recorded serve call")
+    torch.cuda.synchronize()
+
+
+def counted_serve(fn):
+    """Run one serve with the launch counts set to 0 before it and read
+    after it, the kernels' calls recorded; returns (responses, launches,
+    DES calls, frame calls, seconds, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with pu.recording() as des_calls, fp.recording() as frame_calls:
+        resp = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["unpack_run_aligned"] >= 1 and launches["unpack_gather"] >= 1,
+          "a family serve launched no unpack_run_aligned / unpack_gather")
+    return (resp, launches, des_calls, frame_calls, dt,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def served_batch_aux(params, cfg, wires, pad_to: int, rows: int):
+    """One extra prefill of the batch the first admit serves (the first
+    ``rows`` prompts, right-padded with 0 as the scheduler pads them);
+    checks its logits and returns forward's ``aux``."""
+    prompts = [p for w in wires for p in serve.decode_request(w)[1]][:rows]
+    toks = np.zeros((rows, pad_to), np.int32)
+    for j, p in enumerate(prompts):
+        toks[j, :min(len(p), pad_to)] = p[:pad_to]
+    with torch.no_grad():
+        logits, _, aux = model_forward(params, cfg, {"tokens": torch.from_numpy(toks).to(
+            params.embed.device)}, last_only=True)
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (
+        rows, 1, cfg.padded_vocab), f"{cfg.name}: prefill logits not finite / wrong shape")
+    return {k: float(v) for k, v in aux.items()}
+
+
+def family_smoke(dev, arch: str) -> None:
+    """The float32 smoke model, same seeded parameters: the card serves the
+    host's bytes."""
+    scfg = smoke_config(get_config(arch))
+    sp_cpu = init_params(scfg, torch.Generator().manual_seed(0), "cpu")
+    sp_gpu = init_params(scfg, torch.Generator().manual_seed(0), "cpu").to(dev)
+    swires = serve.synthetic_wires(scfg, 4, 3, seed=3)
+    kw = dict(max_new=6, pad_to=16, slots=4)
+    check(serve.serve_requests(sp_gpu, scfg, swires, device=dev, **kw)
+          == serve.serve_requests(sp_cpu, scfg, swires, device="cpu", **kw),
+          f"smoke {arch}: card and host responses differ")
+
+
+def family_run(dev, card: str, arch: str) -> list:
+    """One architecture at full width and its cut depth: the smoke check,
+    then init, a warm-up, the counted serve, step times and one extra
+    prefill for ``aux``; mixtral also serves long prompts, xlstm also the
+    sharded plane.  Returns each counted serve's launches."""
+    family_smoke(dev, arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=FAMILY_LAYERS[arch])
+    wires = serve.synthetic_wires(cfg, FAMILY_REQUESTS, N_PROMPTS, SEED, *PROMPT_LENS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    log(f"[families] {arch}: {cfg.n_layers} of {full.n_layers} layers "
+        f"{list(zip(cfg.layer_kinds(), cfg.ffn_kinds()))[:8]}, d{cfg.d_model}, "
+        f"{n_params} params ({2 * n_params / 2**30:.2f} GiB as bf16), init "
+        f"{time.perf_counter() - t0:.2f} s; smoke model: card == host bytes")
+    kw = dict(pad_to=PAD_TO, slots=SLOTS, device=dev)
+    serve.serve_requests(params, cfg, wires[:1], max_new=2, **kw)  # warm-up
+    resp, launches, des_calls, frame_calls, dt, peak = counted_serve(
+        lambda: serve.serve_requests(params, cfg, wires, max_new=FAMILY_MAX_NEW, **kw))
+    hold_recorded(des_calls, frame_calls)
+    n_out = check_responses(cfg, resp, FAMILY_MAX_NEW)
+    out = [launches]
+
+    prefill_step, decode_step = cached_serve_steps(cfg, cache_len=PAD_TO + FAMILY_MAX_NEW)
+    g = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(2, cfg.vocab, (SLOTS, PAD_TO), dtype=torch.int32, device=dev,
+                         generator=g)
+    pf_ms = time_ms(lambda: prefill_step(params, {"tokens": toks}), reps=2, warmup=1)
+    state = dict(zip(("tok", "cache"), prefill_step(params, {"tokens": toks})))
+
+    def one_decode():
+        state["tok"], state["cache"] = decode_step(params, state["cache"], state["tok"])
+
+    dec_ms = time_ms(one_decode, reps=8, warmup=2)
+    del state
+    log(f"[families] {arch} | {card} | serve_requests: {len(wires)} requests, {n_out} "
+        f"tokens in {dt:.3f} s: {len(wires) / dt:.3f} req/s, {n_out / dt:.1f} tok/s | "
+        f"prefill step ({SLOTS}x{PAD_TO}) {pf_ms:.3f} ms, decode step ({SLOTS} slots) "
+        f"{dec_ms:.3f} ms | peak {peak:.2f} GiB | launches {launches}; kernel DES == plain "
+        f"at the {len(des_calls)} recorded calls")
+    aux = served_batch_aux(params, cfg, wires, PAD_TO, SLOTS)
+    if aux:
+        log(f"[families] {arch} | {card} | moe_dropped {aux['moe_dropped']:.6f}, "
+            f"moe_balance_loss {aux['moe_balance_loss']:.6f} (forward's aux, one extra "
+            f"prefill of the served {SLOTS}x{PAD_TO} batch)")
+
+    if arch == "mixtral-8x22b":
+        lwires = serve.synthetic_wires(cfg, 1, N_PROMPTS, SEED + 1, *LONG_PROMPT_LENS)
+        lkw = dict(pad_to=LONG_PAD_TO, slots=LONG_SLOTS, device=dev)
+        resp, launches, des_calls, frame_calls, dt, peak = counted_serve(
+            lambda: serve.serve_requests(params, cfg, lwires, max_new=FAMILY_MAX_NEW, **lkw))
+        hold_recorded(des_calls, frame_calls)
+        n_out = check_responses(cfg, resp, FAMILY_MAX_NEW)
+        out.append(launches)
+        aux = served_batch_aux(params, cfg, lwires, LONG_PAD_TO, LONG_SLOTS)
+        log(f"[families] {arch} long | {card} | serve_requests: 1 request of {N_PROMPTS} "
+            f"prompts of {LONG_PROMPT_LENS[0]}-{LONG_PROMPT_LENS[1] - 1} tokens, pad_to "
+            f"{LONG_PAD_TO} (window {cfg.window}), {LONG_SLOTS} slots: {n_out} tokens in "
+            f"{dt:.3f} s, {n_out / dt:.1f} tok/s | peak {peak:.2f} GiB | moe_dropped "
+            f"{aux['moe_dropped']:.6f}, moe_balance_loss {aux['moe_balance_loss']:.6f} "
+            f"({LONG_SLOTS * LONG_PAD_TO // 8192} dispatch groups of 8192)")
+
+    if arch == "xlstm-125m":
+        with pu.recording() as des_calls:
+            launches, frame_calls, _ = sharded_run(
+                dev, params, cfg, wires, resp,
+                [1 + i % N_SHARDS for i in range(len(wires))], "xlstm-125m round-robin",
+                max_new=FAMILY_MAX_NEW)
+        check(launches["unpack_run_aligned"] >= 1 and launches["unpack_gather"] >= 1,
+              "xlstm sharded serve launched no unpack_run_aligned / unpack_gather")
+        hold_recorded(des_calls, frame_calls)
+        out.append(launches)
+        log(f"[families] {arch} | {card} | serve_requests_sharded ({N_SHARDS} shards): every "
+            f"response == the batched plane's")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(dev, card: str) -> list:
+    """Phase 12: every other lm architecture served at full width."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches = []
+    for arch in FAMILY_LAYERS:
+        launches += family_run(dev, card, arch)
+    log(f"[families] phase 12: {len(FAMILY_LAYERS)} architectures in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1583,6 +1771,7 @@ def main() -> int:
     path_launches.append(ser_launches)
     rows.update(ser_rows)
     rows.update(phase_chunk_kernel(dev, padded_calls, burst_calls))
+    path_launches += phase_families(dev, card)
 
     records = []
     for name, (source, replaces, _, _, _) in KERNELS.items():

@@ -32,14 +32,14 @@ def dense_init(shape, generator: torch.Generator, in_axis: int = 0,
     std = scale / math.sqrt(shape[in_axis])
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * std).to(dtype)
+    return t.mul_(std).to(dtype)  # in place: no second float32 copy of a large stack
 
 
 def embed_init(shape, generator: torch.Generator, dtype=torch.float32,
                device=None) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.normal_(t, 0.0, 1.0, generator=generator)
-    return (t * 0.02).to(dtype)
+    return t.mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +156,7 @@ def flash_attention(
     q_offset: int = 0,
     block_q: int = 512,
     block_k: int = 1024,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Double-blocked online-softmax attention, as the reference computes
     it: scores and ``p @ v`` in float32, one (block_q, block_k) tile at a
@@ -165,7 +166,7 @@ def flash_attention(
     yet (the serving plane passes none of them)."""
     B, S, K, G, D = q.shape
     T = k.shape[1]
-    scale = 1.0 / math.sqrt(D)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
     block_q = min(block_q, S)
     block_k = min(block_k, T)
     dev = q.device
@@ -207,10 +208,11 @@ def decode_attention(
     kv_len: torch.Tensor,  # (B,) valid length
     *,
     logit_cap: Optional[float] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Single-token attention against a cache (no blocking needed)."""
     B, T, K, D = k_cache.shape
-    scale = 1.0 / math.sqrt(D)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
     s = torch.einsum("bqkgd,btkd->bqkgt", q.float(), k_cache.float()) * scale
     s = softcap(s, logit_cap)
     pos = torch.arange(T, device=q.device)

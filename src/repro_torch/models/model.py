@@ -1,16 +1,20 @@
 """The ``lm`` model family in torch: init / forward / prefill / decode.
 
-Counterpart of ``repro.models.model`` for decoder-only models whose layers
-are all attention + dense FFN (yi-6b, stablelm, granite, ...).  The
-parameters are ``nn.Module``s whose parameter names follow the reference
-pytree (``embed``, ``final_norm.scale``, ``layers.3.attn.wq``, ...) and keep
-its layout, so :func:`params_from_jax` carries reference weights over as
-plain copies.  Other families (vlm, encdec) and layer kinds (MoE, mamba,
-mLSTM, sLSTM) raise ``NotImplementedError``.
+Counterpart of ``repro.models.model`` for decoder-only models, with the
+reference's general layer plan: each layer is one sequence mixer
+(attention, Mamba-2, mLSTM or sLSTM) and one FFN (dense, top-k MoE or
+none), with gemma2's sandwich norms and local/global attention where the
+config asks for them.  That covers every ``lm`` architecture of the
+registry.  The parameters are ``nn.Module``s whose parameter names follow
+the reference pytree (``embed``, ``final_norm.scale``, ``layers.3.attn.wq``,
+``layers.1.moe.router``, ``layers.0.mamba.A_log``, ...) and keep its layout
+and dtypes, so :func:`params_from_jax` carries reference weights over as
+plain copies.  The vlm and encdec families raise ``NotImplementedError``.
 
-The decode path updates the KV cache in place (the reference returns a new
-cache; here the old one is dead after the step, so writing into it saves a
-copy of the whole cache per step).
+The decode path updates attention K/V caches in place (the reference
+returns a new cache; here the old one is dead after the step, so writing
+into it saves a copy of the whole cache per step).  SSM states are small
+and come back as new tensors, as in the reference.
 """
 from __future__ import annotations
 
@@ -23,9 +27,18 @@ from ..configs.base import ModelConfig
 from ..device import DeviceLike, default_device
 from . import attention as attn_mod
 from . import ffn as ffn_mod
+from . import ssm as ssm_mod
 from .common import _param, apply_norm, dtype_of, embed_init, init_norm, softcap
 
-_TODO = "ROADMAP.md queue A item 12 (other model families)"
+_TODO = "ROADMAP.md queue A item 12 (the vlm and encdec families)"
+_TRAIN_TODO = "ROADMAP.md queue A item 13 (training side)"
+
+#: sequence mixers other than attention: (init, full-sequence form, one-step form)
+_SSM_KINDS = {
+    "mamba": (ssm_mod.init_mamba, ssm_mod.mamba_forward, ssm_mod.mamba_decode),
+    "mlstm": (ssm_mod.init_mlstm, ssm_mod.mlstm_forward, ssm_mod.mlstm_decode),
+    "slstm": (ssm_mod.init_slstm, ssm_mod.slstm_forward, ssm_mod.slstm_decode),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -37,16 +50,20 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
     return list(zip(cfg.layer_kinds(), cfg.ffn_kinds()))
 
 
+def plan_period(cfg: ModelConfig) -> int:
+    """Smallest period p (dividing n_layers) such that the layer plan — and
+    the local/global attention alternation — repeats with period p."""
+    plan = [(s, f, cfg.attn_is_local(i)) for i, (s, f) in enumerate(layer_plan(cfg))]
+    n = len(plan)
+    for p in range(1, n + 1):
+        if n % p == 0 and all(plan[i] == plan[i % p] for i in range(n)):
+            return p
+    return n
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.family != "lm":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: {_TODO}")
-    for s, f in layer_plan(cfg):
-        if s != "attn" or f != "dense":
-            raise NotImplementedError(
-                f"layer kind ({s}, {f}) is not ported yet: {_TODO}"
-            )
-    if cfg.sandwich_norm or cfg.window is not None:
-        raise NotImplementedError(f"gemma2 sandwich norms / windows are not ported yet: {_TODO}")
 
 
 # ---------------------------------------------------------------------------
@@ -55,14 +72,34 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 class Layer(torch.nn.Module):
-    """One attention + dense-FFN layer: ``ln1``, ``attn``, ``ln2``, ``ffn``."""
+    """One layer: ``ln1``, the sequence mixer under its kind's name
+    (``attn``, ``mamba``, ``mlstm`` or ``slstm``), ``ln1_post`` (sandwich
+    norm), then, unless the FFN kind is ``none``, ``ln2``, ``ffn`` or ``moe``
+    and ``ln2_post``."""
 
-    def __init__(self, cfg: ModelConfig, dtype, generator: torch.Generator, device=None):
+    def __init__(self, cfg: ModelConfig, seq_kind: str, ffn_kind: str, dtype,
+                 generator: torch.Generator, device=None):
         super().__init__()
         self.ln1 = init_norm(cfg.norm, cfg.d_model, dtype, device)
-        self.attn = attn_mod.init_attn(cfg, dtype, generator, device)
+        if seq_kind == "attn":
+            self.attn = attn_mod.init_attn(cfg, dtype, generator, device)
+        elif seq_kind in _SSM_KINDS:
+            setattr(self, seq_kind, _SSM_KINDS[seq_kind][0](cfg, dtype, generator, device))
+        else:
+            raise ValueError(seq_kind)
+        if cfg.sandwich_norm:
+            self.ln1_post = init_norm(cfg.norm, cfg.d_model, dtype, device)
+        if ffn_kind == "none":
+            return
         self.ln2 = init_norm(cfg.norm, cfg.d_model, dtype, device)
-        self.ffn = ffn_mod.init_dense_ffn(cfg, dtype, generator, device)
+        if ffn_kind == "dense":
+            self.ffn = ffn_mod.init_dense_ffn(cfg, dtype, generator, device)
+        elif ffn_kind == "moe":
+            self.moe = ffn_mod.init_moe_ffn(cfg, dtype, generator, device)
+        else:
+            raise ValueError(ffn_kind)
+        if cfg.sandwich_norm:
+            self.ln2_post = init_norm(cfg.norm, cfg.d_model, dtype, device)
 
 
 class LM(torch.nn.Module):
@@ -88,9 +125,7 @@ class LM(torch.nn.Module):
 
 def init_layer(cfg: ModelConfig, seq_kind: str, ffn_kind: str, dtype,
                generator: torch.Generator, device=None) -> Layer:
-    if seq_kind != "attn" or ffn_kind != "dense":
-        raise NotImplementedError(f"layer kind ({seq_kind}, {ffn_kind}) is not ported yet: {_TODO}")
-    return Layer(cfg, dtype, generator, device)
+    return Layer(cfg, seq_kind, ffn_kind, dtype, generator, device)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -108,7 +143,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
                     device: DeviceLike = None) -> LM:
     """The reference ``init_params`` pytree, exported as numpy arrays
-    (``jax.tree.map(np.asarray, params)``), as the port's module state."""
+    (``jax.tree.map(np.asarray, params)``), as the port's module state.
+    Every parameter keeps its own dtype, which must be the reference's."""
     dev = default_device(device)
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     names = dict(model.named_parameters())
@@ -118,10 +154,11 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
             node = np_tree
             for part in name.split("."):
                 node = node[int(part)] if isinstance(node, (list, tuple)) else node[part]
-            arr = np.array(node, np.float32)
-            if arr.shape != tuple(p.shape):
-                raise ValueError(f"{name}: reference shape {arr.shape} != {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(arr).to(p.dtype))
+            ref = np.asarray(node)
+            if ref.shape != tuple(p.shape) or str(ref.dtype) != str(p.dtype)[len("torch."):]:
+                raise ValueError(f"{name}: reference {ref.dtype}{ref.shape} != "
+                                 f"{p.dtype}{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(ref.astype(np.float32)).to(p.dtype))
             want.discard(name)
     if want:  # pragma: no cover - every name was visited above
         raise ValueError(f"parameters not carried over: {sorted(want)}")
@@ -130,6 +167,17 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
 
 def param_count(params: LM) -> int:
     return sum(p.numel() for p in params.parameters())
+
+
+def stack_layers(layers, period: int) -> Dict[str, Dict[str, torch.Tensor]]:
+    """[L0..Ln] -> {"pos j": {parameter name: stacked over periods}}, the
+    reference's scan-over-layers layout (its pytree flattened to the port's
+    dotted parameter names)."""
+    out = {}
+    for j in range(period):
+        group = [dict(layers[i].named_parameters()) for i in range(j, len(layers), period)]
+        out[f"pos{j}"] = {name: torch.stack([g[name] for g in group]) for name in group[0]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -141,23 +189,52 @@ def layer_forward(
     p: Layer,
     x: torch.Tensor,
     cfg: ModelConfig,
+    layer_idx: int,
+    seq_kind: str,
+    ffn_kind: str,
     *,
     mode: str,  # "full" | "decode"
     cache: Optional[Dict] = None,
     pos: Optional[torch.Tensor] = None,  # (B,) decode positions
     positions: Optional[torch.Tensor] = None,  # (B,S) full-seq positions
-) -> Tuple[torch.Tensor, Dict]:
-    """Returns (x, new_cache)."""
+    segment_ids: Optional[torch.Tensor] = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, Dict, Dict]:
+    """Returns (x, new_cache, aux); ``aux`` holds the MoE FFN's
+    ``moe_balance_loss`` and ``moe_dropped``, and is empty otherwise."""
+    if segment_ids is not None:
+        raise NotImplementedError(f"segment_ids (packed sequences) are not ported yet: "
+                                  f"{_TRAIN_TODO}")
+    aux: Dict = {}
     h = apply_norm(cfg.norm, p.ln1, x, cfg.norm_eps)
-    if mode == "decode":
-        out, kv = attn_mod.attn_decode(p.attn, h, cfg, cache, pos)
+    window = cfg.window if cfg.attn_is_local(layer_idx) else None
+    if seq_kind == "attn":
+        if mode == "decode":
+            out, new_cache = attn_mod.attn_decode(p.attn, h, cfg, cache, pos, window=window)
+        else:
+            out, (k, v) = attn_mod.attn_forward(p.attn, h, cfg, window=window,
+                                                positions=positions, q_offset=q_offset)
+            new_cache = {"k": k, "v": v}
+    elif seq_kind in _SSM_KINDS:
+        _, full_fn, decode_fn = _SSM_KINDS[seq_kind]
+        fn = decode_fn if mode == "decode" else full_fn
+        out, new_cache = fn(getattr(p, seq_kind), h, cfg, cache)
     else:
-        out, (k, v) = attn_mod.attn_forward(p.attn, h, cfg, positions=positions)
-        kv = {"k": k, "v": v}
+        raise ValueError(seq_kind)
+    if cfg.sandwich_norm:
+        out = apply_norm(cfg.norm, p.ln1_post, out, cfg.norm_eps)
     x = x + out
-    h = apply_norm(cfg.norm, p.ln2, x, cfg.norm_eps)
-    x = x + ffn_mod.dense_ffn(p.ffn, h, cfg)
-    return x, kv
+
+    if ffn_kind != "none":
+        h = apply_norm(cfg.norm, p.ln2, x, cfg.norm_eps)
+        if ffn_kind == "dense":
+            out = ffn_mod.dense_ffn(p.ffn, h, cfg)
+        else:
+            out, aux = ffn_mod.moe_ffn(p.moe, h, cfg)
+        if cfg.sandwich_norm:
+            out = apply_norm(cfg.norm, p.ln2_post, out, cfg.norm_eps)
+        x = x + out
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -195,20 +272,30 @@ def forward(
     want_cache: bool = False,
     cache_len: Optional[int] = None,
     last_only: bool = False,
-) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (logits, cache | None).  ``batch["tokens"]``: (B,S).
+) -> Tuple[torch.Tensor, Optional[Dict], Dict]:
+    """Returns (logits, cache | None, aux).  ``batch["tokens"]``: (B,S).
 
+    ``aux`` sums each MoE layer's ``moe_balance_loss`` and ``moe_dropped``
+    over ``n_layers`` (a mean over all layers, dense ones counting zero).
     ``last_only`` computes logits for the final position only (serving
     prefill needs just the next token)."""
     _check_supported(cfg)
     tokens = batch["tokens"]
     x = _embed_tokens(params, cfg, tokens)
     positions = batch.get("positions")
+    segment_ids = batch.get("segment_ids")
+    aux_acc: Dict[str, torch.Tensor] = {}
     caches: List[Dict] = []
-    for lp in params.layers:
-        x, kv = layer_forward(lp, x, cfg, mode="full", positions=positions)
-        if want_cache:
-            caches.append(kv)
+    if cfg.scan_layers and not want_cache:
+        x, aux_acc = _forward_scanned(params, cfg, x, positions, segment_ids)
+    else:
+        for i, (lp, (s, f)) in enumerate(zip(params.layers, layer_plan(cfg))):
+            x, kv, aux = layer_forward(lp, x, cfg, i, s, f, mode="full",
+                                       positions=positions, segment_ids=segment_ids)
+            for k, v in aux.items():
+                aux_acc[k] = aux_acc.get(k, 0.0) + v / cfg.n_layers
+            if want_cache:
+                caches.append(kv)
     x = apply_norm(cfg.norm, params.final_norm, x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
@@ -217,24 +304,66 @@ def forward(
     if want_cache:
         total = tokens.shape[1]
         want_len = cache_len if cache_len is not None else total
-        cache = _grow_cache(cfg, caches, tokens.shape[0], total, want_len)
-    return logits, cache
+        cache = _grow_cache(cfg, caches, tokens.shape[0], total, want_len, x.device)
+    return logits, cache, aux_acc
+
+
+def _forward_scanned(params: LM, cfg: ModelConfig, x, positions, segment_ids):
+    """The reference's scan over layer periods: each period's layers run
+    with their position in the period as ``layer_idx`` (the plan and the
+    local/global alternation repeat with the period, so it is the same
+    layer).  Eager torch traces nothing, so the periods are a loop over
+    the unstacked layers; ``aux`` is the reference's: the last period
+    position's ``moe_balance_loss`` (zero where that layer is dense),
+    averaged over periods."""
+    p = plan_period(cfg)
+    plan = layer_plan(cfg)
+    bal = []
+    for k in range(cfg.n_layers // p):
+        for j in range(p):
+            s, f = plan[j]
+            x, _, aux = layer_forward(params.layers[k * p + j], x, cfg, j, s, f, mode="full",
+                                      positions=positions, segment_ids=segment_ids)
+        bal.append(aux.get("moe_balance_loss", torch.zeros((), device=x.device)))
+    return x, {"moe_balance_loss": torch.stack(bal).mean()}
+
+
+def _kv_len(cfg: ModelConfig, layer: int, seq_len: int, cache_len: int) -> int:
+    """K/V rows the prefill of a ``seq_len`` prompt keeps in ``layer``:
+    ``cache_len`` slots (the prompt's, if longer) in a global layer; in a
+    sliding-window layer the last ``min(cache_len, window)`` keys, a ring,
+    which stays aligned with ``pos % window`` only where the window divides
+    the prompt."""
+    if cfg.window is None or not cfg.attn_is_local(layer):
+        return max(seq_len, cache_len)
+    want = min(cache_len, cfg.window)
+    if seq_len > want and seq_len % want:
+        raise ValueError(f"SWA ring alignment needs window|seq, got {want} vs {seq_len}")
+    return want
 
 
 def _grow_cache(cfg: ModelConfig, caches: List[Dict], batch: int, total: int,
-                cache_len: int) -> Dict:
-    """Pad prefill KV to ``cache_len`` slots (decode appends in place)."""
+                cache_len: int, device) -> Dict:
+    """Pad prefill KV to ``cache_len`` slots (decode appends in place); a
+    sliding-window layer keeps only its last ``window`` keys (see
+    :func:`_kv_len`).  SSM states pass through."""
     out_layers = []
-    for kv in caches:
+    for i, ((s, _), kv) in enumerate(zip(layer_plan(cfg), caches)):
+        if s != "attn":
+            out_layers.append(kv)
+            continue
         k, v = kv["k"], kv["v"]
-        if cache_len > k.shape[1]:
-            pad = (0, 0, 0, 0, 0, cache_len - k.shape[1])
+        want = _kv_len(cfg, i, k.shape[1], cache_len)
+        if k.shape[1] > want:
+            k, v = k[:, -want:], v[:, -want:]
+        elif want > k.shape[1]:
+            pad = (0, 0, 0, 0, 0, want - k.shape[1])
             k = torch.nn.functional.pad(k, pad)
             v = torch.nn.functional.pad(v, pad)
         out_layers.append({"k": k.contiguous(), "v": v.contiguous()})
     return {
         "layers": out_layers,
-        "pos": torch.full((batch,), total, dtype=torch.int32, device=k.device),
+        "pos": torch.full((batch,), total, dtype=torch.int32, device=device),
     }
 
 
@@ -248,13 +377,40 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     _check_supported(cfg)
     dev = default_device(device)
     dtype = dtype_of(cfg.dtype)
-    shape = (batch, cache_len, cfg.n_kv, cfg.hd)
-    layers = [
-        {"k": torch.zeros(shape, dtype=dtype, device=dev),
-         "v": torch.zeros(shape, dtype=dtype, device=dev)}
-        for _ in range(cfg.n_layers)
-    ]
+    layers = []
+    for i, (s, _) in enumerate(layer_plan(cfg)):
+        if s == "attn":
+            T = cache_len
+            if cfg.window is not None and cfg.attn_is_local(i):
+                T = min(T, cfg.window)
+            shape = (batch, T, cfg.n_kv, cfg.hd)
+            layers.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                           "v": torch.zeros(shape, dtype=dtype, device=dev)})
+        elif s == "mamba":
+            layers.append(ssm_mod.mamba_init_state(cfg, batch, dtype, dev))
+        elif s == "mlstm":
+            layers.append(ssm_mod.mlstm_init_state(cfg, batch, dev))
+        else:
+            layers.append(ssm_mod.slstm_init_state(cfg, batch, device=dev))
     return {"layers": layers, "pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
+
+
+def cache_zeros(cfg: ModelConfig, batch: int, seq_len: int, cache_len: int,
+                device: DeviceLike = None) -> Dict:
+    """Zeros of the shapes and dtypes of the cache that ``prefill`` returns
+    for ``batch`` prompts of ``seq_len`` tokens and ``cache_len``: the
+    reference's scheduler allocates its slot cache so (from prefill's
+    ``jax.eval_shape``).  Unlike :func:`init_cache`, the mLSTM and sLSTM
+    stabilisers ``m`` are 0 here, not -1e30.  Raises ``ValueError`` where
+    prefill would (a window that does not divide a longer prompt)."""
+    cache = init_cache(cfg, batch, cache_len, device)
+    for i, layer in enumerate(cache["layers"]):
+        for name, t in layer.items():
+            shape = tuple(t.shape)
+            if name in ("k", "v"):
+                shape = (batch, _kv_len(cfg, i, seq_len, cache_len)) + shape[2:]
+            layer[name] = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    return cache
 
 
 def decode_step(
@@ -265,8 +421,9 @@ def decode_step(
     pos = cache["pos"]
     x = _embed_tokens(params, cfg, tokens)
     new_layers = []
-    for i, lp in enumerate(params.layers):
-        x, kv = layer_forward(lp, x, cfg, mode="decode", cache=cache["layers"][i], pos=pos)
+    for i, (lp, (s, f)) in enumerate(zip(params.layers, layer_plan(cfg))):
+        x, kv, _ = layer_forward(lp, x, cfg, i, s, f, mode="decode",
+                                 cache=cache["layers"][i], pos=pos)
         new_layers.append(kv)
     x = apply_norm(cfg.norm, params.final_norm, x, cfg.norm_eps)
     logits = _unembed(params, cfg, x)
@@ -277,6 +434,6 @@ def prefill(
     params: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     cache_len: Optional[int] = None, last_only: bool = False,
 ) -> Tuple[torch.Tensor, Dict]:
-    logits, cache = forward(params, cfg, batch, want_cache=True, cache_len=cache_len,
-                            last_only=last_only)
+    logits, cache, _ = forward(params, cfg, batch, want_cache=True, cache_len=cache_len,
+                               last_only=last_only)
     return logits, cache

@@ -3,9 +3,13 @@
 Counterpart of ``repro.runtime.scheduler``.  A :class:`ContinuousBatcher`
 owns
 
-* a **slot cache** — one KV cache of ``slots`` rows
-  (``init_cache(cfg, slots, prompt_cap + max_new)``) that lives across
-  requests, updated in place;
+* a **slot cache** — one model cache of ``slots`` rows that lives across
+  requests, updated in place: zeros of the shapes and dtypes of the cache
+  that the admit prefill returns (``models.cache_zeros``), as the
+  reference allocates it from prefill's ``jax.eval_shape``.  Attention
+  K/V, Mamba, mLSTM and sLSTM states alike; an idle slot's mLSTM/sLSTM
+  stabiliser starts at 0 as in the reference, which matters because idle
+  slots keep decoding and, in an MoE model, take expert capacity;
 * the **serving steps** of ``launch.steps.cached_serve_steps``;
 * an **admit/evict loop** — every tick first admits pending sequences into
   free slots (one fixed-shape prefill of ``admit_cap`` rows, copied into
@@ -88,15 +92,16 @@ def _kept_rows(slot_ids: np.ndarray, slots: int, device) -> Optional[Tuple[torch
 
 def _scatter_rows(cache: Dict, cur_tok: torch.Tensor, new_cache: Dict,
                   new_tok: torch.Tensor, slot_ids: np.ndarray) -> None:
-    """Copy prefilled rows into their slots, in place (unused admit rows
-    dropped, see :func:`_kept_rows`)."""
+    """Copy prefilled rows into their slots, in place: every tensor of
+    every layer's state, along the batch axis (unused admit rows dropped,
+    see :func:`_kept_rows`)."""
     kept = _kept_rows(slot_ids, cur_tok.shape[0], cur_tok.device)
     if kept is None:
         return
     src, dst = kept
     for c, n in zip(cache["layers"], new_cache["layers"]):
-        c["k"].index_copy_(0, dst, n["k"].index_select(0, src).to(c["k"].dtype))
-        c["v"].index_copy_(0, dst, n["v"].index_select(0, src).to(c["v"].dtype))
+        for name, t in c.items():
+            t.index_copy_(0, dst, n[name].index_select(0, src).to(t.dtype))
     cache["pos"].index_copy_(0, dst, new_cache["pos"].index_select(0, src))
     cur_tok.index_copy_(0, dst, new_tok.index_select(0, src))
 
@@ -115,7 +120,7 @@ class ContinuousBatcher:
     def __init__(self, params, cfg: ModelConfig, sched: SchedulerConfig,
                  metrics=None, spans=None, logprobs: bool = False):
         from ..launch.steps import cached_serve_steps
-        from ..models.model import init_cache
+        from ..models.model import cache_zeros
 
         self.params = params
         self.cfg = cfg
@@ -135,7 +140,8 @@ class ContinuousBatcher:
         self.prefill_step, self.decode_step = cached_serve_steps(
             cfg, cache_len=sched.cache_len, logprobs=logprobs
         )
-        self.cache = init_cache(cfg, sched.slots, sched.cache_len, self.device)
+        self.cache = cache_zeros(cfg, sched.slots, sched.prompt_cap, sched.cache_len,
+                                 self.device)
         self.cur_tok = torch.zeros((sched.slots, 1), dtype=torch.int32, device=self.device)
         self.cur_lp = torch.zeros((sched.slots, 1), dtype=torch.float32, device=self.device)
         #: (seq_id, position) -> logprob of every emission of the last tick

@@ -1,6 +1,6 @@
 """The port on the card: CUDA kernels against their plain versions, and the
-routed fabric and the sharded and streaming planes on the card against the
-host.
+routed fabric, the sharded and streaming planes and each model family's
+smoke serve on the card against the host.
 
 Every test here needs a CUDA device; on a host without one they skip.  The
 file imports no JAX, so it runs on the card's machine as it is:
@@ -120,6 +120,20 @@ def test_smoke_serve_on_card_equals_host(cuda_device):
     pu.reset_launches()
     got = serve.serve_requests(params_gpu, cfg, wires, device=cuda_device, **kw)
     assert pu.LAUNCHES["unpack_run_aligned"] >= 1 and pu.LAUNCHES["unpack_gather"] >= 1
+    assert got == serve.serve_requests(params_cpu, cfg, wires, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "gemma2-27b",
+                                  "jamba-1.5-large-398b", "xlstm-125m"])
+def test_family_smoke_serve_on_card_equals_host(cuda_device, arch):
+    """Each model family's float32 smoke model (MoE, windows, gemma2, the
+    SSM blocks), same seeded parameters: the card serves the host's bytes."""
+    cfg = smoke_config(get_config(arch))
+    params_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params_gpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(cuda_device)
+    wires = serve.synthetic_wires(cfg, 3, 3, seed=2)
+    kw = dict(max_new=4, pad_to=16, slots=4)
+    got = serve.serve_requests(params_gpu, cfg, wires, device=cuda_device, **kw)
     assert got == serve.serve_requests(params_cpu, cfg, wires, device="cpu", **kw)
 
 
