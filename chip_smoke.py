@@ -134,6 +134,25 @@ What it does, in order (any failed check raises and the exit code is 1):
    shards, round-robin, which must answer with the batched plane's bytes.
    Each line names the card and its power limit, with req/s, tok/s, the
    step times and the peak memory.
+13. Multimodal families (after phase 12): phi-3-vision-4.2b (vlm; all 32
+   layers, d 3072, a prefix of 576 vision tokens of width 1024, so each
+   slot holds 272 + 576 K/V rows) and whisper-tiny (encdec; 4 encoder
+   layers over 1500 frames, 4 decoder layers with cross attention, the
+   encoder's K/V in every slot) at full width and depth in bf16, seeded
+   weights from a generator on the card.  For each, phase 12's checks
+   and load (smoke model card == host; 4 wires x 4 prompts, ``pad_to``
+   256, ``max_new`` 16, 16 slots; responses parse; B1/B3 counts rise and
+   their recorded calls == plain; prefill and decode step times and peak
+   memory), fed the reference's zero ``vision``/``audio`` placeholders;
+   then one extra prefill of the served batch with seeded non-zero
+   ``vision``/``audio``, whose logits must be finite and differ from the
+   placeholders'; then ``serve_requests_sharded`` (3 shards,
+   round-robin) and, for whisper, ``serve_requests_streaming`` (overlap
+   and logprobs), each equal to the batched plane's bytes, with
+   ``frame_batch``, B6 and ``chunk_bursts`` counted and held to their
+   plain versions at the recorded calls.  ``[mm]`` lines name the card
+   and its power limit.  Phase 8 also re-times B6 against its two
+   ``.contiguous()`` slices at 2**20 frames in alternating rounds.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -185,6 +204,7 @@ from repro_torch.models import init_params, param_count  # noqa: E402
 from repro_torch.models import forward as model_forward  # noqa: E402
 from repro_torch.models import prefill as model_prefill  # noqa: E402
 from repro_torch.obs.metrics import window_stats  # noqa: E402
+from repro_torch.runtime.scheduler import extra_inputs  # noqa: E402
 from repro_torch import stream as stream_pkg  # noqa: E402
 from repro_torch.stream import plane as stream_plane  # noqa: E402
 
@@ -257,6 +277,13 @@ FAMILY_REQUESTS, FAMILY_MAX_NEW = 4, 16
 # mixtral's long serve: one wire of 4 prompts of 4097-8192 tokens, padded to
 # 8192 (the window, 4096, divides it): its ring and four MoE dispatch groups
 LONG_PROMPT_LENS, LONG_PAD_TO, LONG_SLOTS = (4097, 8193), 8192, 4
+# the vlm and encdec families (phase 13): full width and full depth, phase
+# 12's load; the sharded plane for both, the streaming plane for whisper
+MULTIMODAL_ARCHS = ("phi-3-vision-4.2b", "whisper-tiny")
+MULTIMODAL_STREAMING = ("whisper-tiny",)
+# B6 against its two .contiguous() slices at 2**20 frames (phase 8):
+# alternating rounds of this many calls each
+B6_ROUNDS, B6_ROUND_REPS = 21, 50
 
 
 def log(msg: str) -> None:
@@ -618,6 +645,28 @@ def library_frame_ms(name: str, calls, reps: int) -> float:
     return time_ms(fn, reps)
 
 
+def b6_against_slices(frames: torch.Tensor) -> None:
+    """B6 and the two ``.contiguous()`` slices at 2**20 frames, in
+    ``B6_ROUNDS`` alternating rounds (kernel first in even rounds, slices
+    first in odd ones) of ``B6_ROUND_REPS`` calls each: the per-round
+    medians and spreads, and the median of the per-round ratios."""
+    kernel = lambda: fp.unpack_frames_batch(frames)  # noqa: E731
+    slices = lambda: (frames[:, :4].contiguous(), frames[:, 4:].contiguous())  # noqa: E731
+    ks, ls = [], []
+    for r in range(B6_ROUNDS):
+        pair = [(kernel, ks), (slices, ls)]
+        for fn, acc in pair if r % 2 == 0 else pair[::-1]:
+            acc.append(time_ms(fn, B6_ROUND_REPS, warmup=3))
+    ratios = sorted(k / lib for k, lib in zip(ks, ls))
+    med = statistics.median
+    log(f"[kernels] B6 vs slices at 2**20 frames, {B6_ROUNDS} alternating rounds of "
+        f"{B6_ROUND_REPS} calls: kernel median {med(ks):.4f} ms (min {min(ks):.4f}, max "
+        f"{max(ks):.4f}), slices median {med(ls):.4f} ms (min {min(ls):.4f}, max "
+        f"{max(ls):.4f}); kernel / slices per round: median {med(ratios):.4f}, min "
+        f"{ratios[0]:.4f}, max {ratios[-1]:.4f}; kernel slower in "
+        f"{sum(x > 1 for x in ratios)} of {B6_ROUNDS} rounds")
+
+
 def phase_frame_kernels(dev, recorded, stream_framing, joins):
     """Phase 8: each frame kernel == plain at the calls phases 5-7 made
     (recorded) and at 2**20 frames of 4 + 64 words."""
@@ -667,6 +716,7 @@ def phase_frame_kernels(dev, recorded, stream_framing, joins):
         log_rows(name, rows[name], "large (2**20 frames)",
                  {"pack_frames_batch": "torch.cat",
                   "unpack_frames_batch": "slices .contiguous()"}.get(name, ""))
+    b6_against_slices(large["unpack_frames_batch"][0][0])
     # frame_batch at the streaming serves' calls
     check(len(stream_framing) >= 1, "frame_batch: no streaming calls recorded")
     r = measure("frame_batch", stream_framing, 20)
@@ -922,7 +972,7 @@ def phase_sharded(dev, params, cfg, wires, base):
 
 
 def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool,
-                  telemetry=None):
+                  telemetry=None, max_new: int = MAX_NEW):
     """One streaming serve on a fresh default serve fabric; every check of
     phase 7.  ``telemetry`` (keyword arguments such as ``trace``,
     ``spans``, ``metrics``, ``analyze``) goes to the serve.  Returns its
@@ -979,7 +1029,7 @@ def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool,
             mock.patch.object(stream_pkg, "flush_lanes", timed_flush), \
             mock.patch.object(stream_plane, "encode_fragment_bursts", noted_bursts):
         resp = serve.serve_requests_streaming(
-            params, cfg, wires, max_new=MAX_NEW, pad_to=PAD_TO, slots=SLOTS, fabric=fab,
+            params, cfg, wires, max_new=max_new, pad_to=PAD_TO, slots=SLOTS, fabric=fab,
             overlap=overlap, logprobs=logprobs, on_token=on_token,
             on_logprob=on_logprob if logprobs else None, device=dev, **(telemetry or {}))
     torch.cuda.synchronize()
@@ -993,7 +1043,7 @@ def streaming_run(dev, params, cfg, wires, base, overlap: bool, logprobs: bool,
     check(launches["frame_batch"] == fab.exchanges >= 1,
           f"streaming serve: {launches['frame_batch']} frame_batch launches for "
           f"{fab.exchanges} dispatched ticks")
-    n_out = check_responses(cfg, resp)
+    n_out = check_responses(cfg, resp, max_new)
     for m, (a, b) in enumerate(zip(resp, base)):
         check(a == b, f"streamed response {m} differs from the batched plane's")
         for j, out in enumerate(serve.decode_response(b)[1]):
@@ -1606,20 +1656,58 @@ def counted_serve(fn):
             torch.cuda.max_memory_allocated() / 2**30)
 
 
-def served_batch_aux(params, cfg, wires, pad_to: int, rows: int):
-    """One extra prefill of the batch the first admit serves (the first
-    ``rows`` prompts, right-padded with 0 as the scheduler pads them);
-    checks its logits and returns forward's ``aux``."""
+def served_batch(cfg, wires, pad_to: int, rows: int, dev) -> dict:
+    """The batch the first admit serves: the first ``rows`` prompts,
+    right-padded with 0 as the scheduler pads them, and the family's zero
+    placeholder (none for an lm)."""
     prompts = [p for w in wires for p in serve.decode_request(w)[1]][:rows]
     toks = np.zeros((rows, pad_to), np.int32)
     for j, p in enumerate(prompts):
         toks[j, :min(len(p), pad_to)] = p[:pad_to]
+    batch = extra_inputs(cfg, rows, dev)
+    batch["tokens"] = torch.from_numpy(toks).to(dev)
+    return batch
+
+
+def served_batch_aux(params, cfg, wires, pad_to: int, rows: int):
+    """One extra prefill of the batch the first admit serves; checks its
+    logits and returns forward's ``aux``."""
     with torch.no_grad():
-        logits, _, aux = model_forward(params, cfg, {"tokens": torch.from_numpy(toks).to(
-            params.embed.device)}, last_only=True)
+        logits, _, aux = model_forward(params, cfg, served_batch(
+            cfg, wires, pad_to, rows, params.embed.device), last_only=True)
     check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (
         rows, 1, cfg.padded_vocab), f"{cfg.name}: prefill logits not finite / wrong shape")
     return {k: float(v) for k, v in aux.items()}
+
+
+def serve_and_step_times(dev, params, cfg, wires):
+    """Phase 12's serve of ``wires`` (after a one-wire warm-up), counted
+    and held to the plain kernels at its recorded calls, then the prefill
+    step (``SLOTS`` x ``PAD_TO`` seeded tokens, the family's placeholder)
+    and the decode step timed by CUDA events.  Returns (responses,
+    launches, DES calls, tokens out, seconds, peak GiB, prefill ms, decode
+    ms, K/V rows per slot)."""
+    kw = dict(pad_to=PAD_TO, slots=SLOTS, device=dev)
+    serve.serve_requests(params, cfg, wires[:1], max_new=2, **kw)  # warm-up
+    resp, launches, des_calls, frame_calls, dt, peak = counted_serve(
+        lambda: serve.serve_requests(params, cfg, wires, max_new=FAMILY_MAX_NEW, **kw))
+    hold_recorded(des_calls, frame_calls)
+    n_out = check_responses(cfg, resp, FAMILY_MAX_NEW)
+
+    prefill_step, decode_step = cached_serve_steps(cfg, cache_len=PAD_TO + FAMILY_MAX_NEW)
+    g = torch.Generator(device=dev).manual_seed(5)
+    batch = extra_inputs(cfg, SLOTS, dev)
+    batch["tokens"] = torch.randint(2, cfg.vocab, (SLOTS, PAD_TO), dtype=torch.int32,
+                                    device=dev, generator=g)
+    pf_ms = time_ms(lambda: prefill_step(params, batch), reps=2, warmup=1)
+    state = dict(zip(("tok", "cache"), prefill_step(params, batch)))
+    kv_rows = next((c["k"].shape[1] for c in state["cache"]["layers"] if "k" in c), 0)
+
+    def one_decode():
+        state["tok"], state["cache"] = decode_step(params, state["cache"], state["tok"])
+
+    dec_ms = time_ms(one_decode, reps=8, warmup=2)
+    return resp, launches, des_calls, n_out, dt, peak, pf_ms, dec_ms, kv_rows
 
 
 def family_smoke(dev, arch: str) -> None:
@@ -1652,26 +1740,9 @@ def family_run(dev, card: str, arch: str) -> list:
         f"{list(zip(cfg.layer_kinds(), cfg.ffn_kinds()))[:8]}, d{cfg.d_model}, "
         f"{n_params} params ({2 * n_params / 2**30:.2f} GiB as bf16), init "
         f"{time.perf_counter() - t0:.2f} s; smoke model: card == host bytes")
-    kw = dict(pad_to=PAD_TO, slots=SLOTS, device=dev)
-    serve.serve_requests(params, cfg, wires[:1], max_new=2, **kw)  # warm-up
-    resp, launches, des_calls, frame_calls, dt, peak = counted_serve(
-        lambda: serve.serve_requests(params, cfg, wires, max_new=FAMILY_MAX_NEW, **kw))
-    hold_recorded(des_calls, frame_calls)
-    n_out = check_responses(cfg, resp, FAMILY_MAX_NEW)
+    resp, launches, des_calls, n_out, dt, peak, pf_ms, dec_ms, _ = serve_and_step_times(
+        dev, params, cfg, wires)
     out = [launches]
-
-    prefill_step, decode_step = cached_serve_steps(cfg, cache_len=PAD_TO + FAMILY_MAX_NEW)
-    g = torch.Generator(device=dev).manual_seed(5)
-    toks = torch.randint(2, cfg.vocab, (SLOTS, PAD_TO), dtype=torch.int32, device=dev,
-                         generator=g)
-    pf_ms = time_ms(lambda: prefill_step(params, {"tokens": toks}), reps=2, warmup=1)
-    state = dict(zip(("tok", "cache"), prefill_step(params, {"tokens": toks})))
-
-    def one_decode():
-        state["tok"], state["cache"] = decode_step(params, state["cache"], state["tok"])
-
-    dec_ms = time_ms(one_decode, reps=8, warmup=2)
-    del state
     log(f"[families] {arch} | {card} | serve_requests: {len(wires)} requests, {n_out} "
         f"tokens in {dt:.3f} s: {len(wires) / dt:.3f} req/s, {n_out / dt:.1f} tok/s | "
         f"prefill step ({SLOTS}x{PAD_TO}) {pf_ms:.3f} ms, decode step ({SLOTS} slots) "
@@ -1728,6 +1799,111 @@ def phase_families(dev, card: str) -> list:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the vlm and encdec families
+# ---------------------------------------------------------------------------
+
+
+def modality_reaches_logits(params, cfg, batch: dict) -> float:
+    """One extra prefill of the served batch with seeded non-zero
+    ``vision``/``audio`` (a generator on the card): its logits must be
+    finite and differ from the zero-placeholder prefill's, which shows
+    the prefix or the encoder is on the path.  Returns the largest
+    difference."""
+    g = torch.Generator(device=batch["tokens"].device).manual_seed(SEED + 7)
+    seeded = {k: v if k == "tokens" else torch.randn(v.shape, generator=g, device=v.device)
+              for k, v in batch.items()}
+    with torch.no_grad():
+        zero = model_forward(params, cfg, batch, last_only=True)[0]
+        live = model_forward(params, cfg, seeded, last_only=True)[0]
+    rows = batch["tokens"].shape[0]
+    for name, lg in (("zero", zero), ("seeded", live)):
+        check(bool(torch.isfinite(lg).all()) and tuple(lg.shape) == (
+            rows, 1, cfg.padded_vocab), f"{cfg.name}: {name} prefill logits not finite / "
+                                        f"wrong shape")
+    diff = float((live - zero).abs().max())
+    check(diff > 0, f"{cfg.name}: seeded {sorted(set(batch) - {'tokens'})} left the "
+                    f"logits unchanged")
+    return diff
+
+
+def multimodal_run(dev, card: str, arch: str) -> list:
+    """One vlm or encdec architecture at full width and full depth: the
+    smoke check, init, a warm-up, the counted serve, step times, the
+    modality check, then the sharded plane (round-robin) and, for
+    whisper, the streaming plane with overlap and logprobs, each held to
+    the batched plane's bytes.  Returns each counted serve's launches."""
+    family_smoke(dev, arch)
+    cfg = get_config(arch)
+    wires = serve.synthetic_wires(cfg, FAMILY_REQUESTS, N_PROMPTS, SEED, *PROMPT_LENS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    shape = (f"{cfg.vision_tokens} vision tokens of width {cfg.vision_dim}"
+             if cfg.family == "vlm" else f"{cfg.enc_layers} encoder layers over "
+                                         f"{cfg.enc_seq} frames")
+    log(f"[mm] {arch} ({cfg.family}): {cfg.n_layers} layers, d{cfg.d_model}, {shape}, "
+        f"{n_params} params ({2 * n_params / 2**30:.2f} GiB as bf16), init "
+        f"{time.perf_counter() - t0:.2f} s; smoke model: card == host bytes")
+    resp, launches, des_calls, n_out, dt, peak, pf_ms, dec_ms, rows = serve_and_step_times(
+        dev, params, cfg, wires)
+    out = [launches]
+    extra = (f"{cfg.vision_tokens} prefix positions" if cfg.family == "vlm" else
+             f"the encoder over {cfg.enc_seq} frames")
+    log(f"[mm] {arch} | {card} | serve_requests: {len(wires)} requests, {n_out} tokens in "
+        f"{dt:.3f} s: {len(wires) / dt:.3f} req/s, {n_out / dt:.1f} tok/s | prefill step "
+        f"({SLOTS}x{PAD_TO} tokens + {extra}) {pf_ms:.3f} ms, decode step ({SLOTS} slots, "
+        f"{rows} K/V rows) "
+        f"{dec_ms:.3f} ms | peak {peak:.2f} GiB | launches {launches}; kernel DES == plain "
+        f"at the {len(des_calls)} recorded calls")
+    diff = modality_reaches_logits(params, cfg, served_batch(cfg, wires, PAD_TO, SLOTS, dev))
+    log(f"[mm] {arch} | {card} | one extra prefill of the served {SLOTS}x{PAD_TO} batch "
+        f"with seeded non-zero {'vision' if cfg.family == 'vlm' else 'audio'}: logits "
+        f"finite, max |seeded - zero placeholder| = {diff:.6f}")
+
+    with pu.recording() as des_calls:
+        launches, frame_calls, _ = sharded_run(
+            dev, params, cfg, wires, resp, [1 + i % N_SHARDS for i in range(len(wires))],
+            f"{arch} round-robin", max_new=FAMILY_MAX_NEW)
+    check(launches["unpack_run_aligned"] >= 1 and launches["unpack_gather"] >= 1,
+          f"{arch} sharded serve launched no unpack_run_aligned / unpack_gather")
+    hold_recorded(des_calls, frame_calls)
+    out.append(launches)
+    log(f"[mm] {arch} | {card} | serve_requests_sharded ({N_SHARDS} shards, round-robin): "
+        f"every response == the batched plane's; frame_batch {launches['frame_batch']}, "
+        f"B6 {launches['unpack_frames_batch']} launches == plain at "
+        f"{len(frame_calls)} recorded calls")
+    if arch in MULTIMODAL_STREAMING:
+        with pu.recording() as des_calls:
+            launches, frame_calls, result, _ = streaming_run(
+                dev, params, cfg, wires, resp, overlap=True, logprobs=True,
+                max_new=FAMILY_MAX_NEW)
+        hold_recorded(des_calls, frame_calls)
+        out.append(launches)
+        log(f"[mm] {arch} | {card} | serve_requests_streaming ({N_SHARDS} shards, overlap, "
+            f"logprobs): {result['req_s']:.3f} req/s, {result['tok_s']:.1f} tok/s, TTFT "
+            f"p50 {result['ttft_p50']:.3f} s p95 {result['ttft_p95']:.3f} s; every wire == "
+            f"the batched plane's; chunk_bursts {launches['chunk_bursts']}, frame_batch "
+            f"{launches['frame_batch']}, B6 {launches['unpack_frames_batch']} launches == "
+            f"plain at {len(frame_calls)} recorded calls")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_multimodal(dev, card: str) -> list:
+    """Phase 13: phi-3-vision and whisper-tiny served at full width and depth."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches = []
+    for arch in MULTIMODAL_ARCHS:
+        launches += multimodal_run(dev, card, arch)
+    log(f"[mm] phase 13: {len(MULTIMODAL_ARCHS)} architectures in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1772,6 +1948,7 @@ def main() -> int:
     rows.update(ser_rows)
     rows.update(phase_chunk_kernel(dev, padded_calls, burst_calls))
     path_launches += phase_families(dev, card)
+    path_launches += phase_multimodal(dev, card)
 
     records = []
     for name, (source, replaces, _, _, _) in KERNELS.items():

@@ -72,7 +72,7 @@ from ..data.schemas import request_schema, response_schema
 from ..device import DeviceLike, default_device
 from ..kernels.ops import decode_batch_kernel, wires_to_u32
 from ..models.model import init_params
-from ..runtime.scheduler import ContinuousBatcher, SchedulerConfig
+from ..runtime.scheduler import ContinuousBatcher, SchedulerConfig, extra_inputs
 from .steps import make_prefill_step, make_serve_step
 
 #: the three request leaves the plane consumes (the outer 'prompts' count
@@ -177,7 +177,9 @@ def serve_request(
         toks[i, : min(len(p), S)] = p[:S]
     prefill_step = make_prefill_step(cfg, cache_len=S + max_new)
     serve_step = make_serve_step(cfg)
-    tok, cache = prefill_step(params, {"tokens": torch.from_numpy(toks).to(dev)})
+    batch = extra_inputs(cfg, B, dev)  # a vlm's or encdec's zero placeholders
+    batch["tokens"] = torch.from_numpy(toks).to(dev)
+    tok, cache = prefill_step(params, batch)
     out_tokens = [tok]
     for _ in range(max_new - 1):
         tok, cache = serve_step(params, cache, tok)

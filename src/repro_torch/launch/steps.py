@@ -6,7 +6,10 @@ step closures on (cfg, cache_len, logprobs) only so the scheduler can
 re-enter the same functions every tick, as the reference re-enters its
 jitted ones.  With ``logprobs=True`` the steps also return the chosen
 token's float32 log-probability (the typed logprob stream's payload).
-Training steps and input specs are not ported yet.
+The steps serve every model family: a vlm's or encdec's batch carries its
+``vision`` or ``audio`` input beside the tokens
+(``runtime.scheduler.extra_inputs``).  Training steps and input specs are
+not ported yet.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""The ``lm`` model family in torch (counterpart of ``repro.models``)."""
+"""The model families in torch: lm, vlm and encdec (counterpart of ``repro.models``)."""
 from .model import (
     LM,
     cache_zeros,

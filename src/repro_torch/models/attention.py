@@ -1,8 +1,9 @@
 """Attention layers: GQA/MQA/MHA with RoPE and sliding windows (plain torch).
 
 Counterpart of ``repro.models.attention``: ``init_attn``, ``_qkv``,
-``attn_forward`` (full sequence, returns the new KV) and ``attn_decode``
-(one token against a KV cache).  Cross attention (encdec) is not ported yet.
+``attn_forward`` (full sequence, returns the new KV), ``attn_decode``
+(one token against a KV cache) and the encoder-decoder cross attention
+(``init_cross_attn``, ``cross_kv``, ``cross_attn_forward``).
 """
 from __future__ import annotations
 
@@ -108,3 +109,37 @@ def attn_decode(
     out = decode_attention(q, kc, vc, kv_len, logit_cap=cfg.attn_softcap)
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p.wo
     return out, {"k": kc, "v": vc}
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attn(cfg: ModelConfig, dtype, generator: torch.Generator,
+                    device=None) -> Attention:
+    return Attention(cfg, dtype, generator, device)
+
+
+def cross_attn_forward(
+    p: Attention,
+    x: torch.Tensor,  # (B,S,d) decoder states
+    enc_kv: Tuple[torch.Tensor, torch.Tensor],  # precomputed (k, v): (B,T,K,D)
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Decoder queries against the encoder's K/V, unmasked; decode runs it
+    with S = 1."""
+    B, S, _ = x.shape
+    nq, nkv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    q = _split_heads(x @ p.wq, nq, hd).reshape(B, S, nkv, nq // nkv, hd)
+    k, v = enc_kv
+    out = flash_attention(q, k, v, causal=False, logit_cap=cfg.attn_softcap)
+    return out.reshape(B, S, nq * hd) @ p.wo
+
+
+def cross_kv(p: Attention, enc_out: torch.Tensor,
+             cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V of the encoder output, computed once per prefill."""
+    k = _split_heads(enc_out @ p.wk, cfg.n_kv, cfg.hd)
+    v = _split_heads(enc_out @ p.wv, cfg.n_kv, cfg.hd)
+    return k, v

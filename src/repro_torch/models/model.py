@@ -1,15 +1,26 @@
-"""The ``lm`` model family in torch: init / forward / prefill / decode.
+"""The model families in torch: init / forward / prefill / decode.
 
-Counterpart of ``repro.models.model`` for decoder-only models, with the
-reference's general layer plan: each layer is one sequence mixer
-(attention, Mamba-2, mLSTM or sLSTM) and one FFN (dense, top-k MoE or
-none), with gemma2's sandwich norms and local/global attention where the
-config asks for them.  That covers every ``lm`` architecture of the
-registry.  The parameters are ``nn.Module``s whose parameter names follow
-the reference pytree (``embed``, ``final_norm.scale``, ``layers.3.attn.wq``,
-``layers.1.moe.router``, ``layers.0.mamba.A_log``, ...) and keep its layout
+Counterpart of ``repro.models.model`` for every architecture of the
+registry, with the reference's general layer plan: each layer is one
+sequence mixer (attention, Mamba-2, mLSTM or sLSTM) and one FFN (dense,
+top-k MoE or none), with gemma2's sandwich norms and local/global
+attention where the config asks for them.  Families:
+
+* ``lm`` — decoder-only;
+* ``vlm`` (phi-3-vision) — ``batch["vision"]`` patch embeddings, projected
+  by ``vision_proj``, are prepended to the token stream; the prefix holds
+  cache positions ``[0, vision_tokens)`` and the text follows it;
+* ``encdec`` (whisper) — ``batch["audio"]`` frames run through the
+  ``encoder`` (non-causal attention layers), each decoder layer is
+  followed by a ``cross`` block against the encoder's K/V, which the
+  cache carries as ``enc_kv``; a sinusoid gives the positions.
+
+The parameters are ``nn.Module``s whose parameter names follow the
+reference pytree (``embed``, ``final_norm.scale``, ``layers.3.attn.wq``,
+``layers.1.moe.router``, ``layers.0.mamba.A_log``, ``vision_proj``,
+``encoder.layers.0.ffn.wi``, ``cross.2.attn.wq``, ...) and keep its layout
 and dtypes, so :func:`params_from_jax` carries reference weights over as
-plain copies.  The vlm and encdec families raise ``NotImplementedError``.
+plain copies.
 
 The decode path updates attention K/V caches in place (the reference
 returns a new cache; here the old one is dead after the step, so writing
@@ -30,7 +41,6 @@ from . import ffn as ffn_mod
 from . import ssm as ssm_mod
 from .common import _param, apply_norm, dtype_of, embed_init, init_norm, softcap
 
-_TODO = "ROADMAP.md queue A item 12 (the vlm and encdec families)"
 _TRAIN_TODO = "ROADMAP.md queue A item 13 (training side)"
 
 #: sequence mixers other than attention: (init, full-sequence form, one-step form)
@@ -59,11 +69,6 @@ def plan_period(cfg: ModelConfig) -> int:
         if n % p == 0 and all(plan[i] == plan[i % p] for i in range(n)):
             return p
     return n
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "lm":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: {_TODO}")
 
 
 # ---------------------------------------------------------------------------
@@ -102,13 +107,36 @@ class Layer(torch.nn.Module):
             self.ln2_post = init_norm(cfg.norm, cfg.d_model, dtype, device)
 
 
+class Encoder(torch.nn.Module):
+    """whisper's encoder: ``layers`` (attention + dense FFN each) and
+    ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, generator: torch.Generator, device=None):
+        super().__init__()
+        self.layers = torch.nn.ModuleList(
+            init_layer(cfg, "attn", "dense", dtype, generator, device)
+            for _ in range(cfg.enc_layers)
+        )
+        self.final_norm = init_norm(cfg.norm, cfg.d_model, dtype, device)
+
+
+class CrossBlock(torch.nn.Module):
+    """The cross block after a decoder layer: ``ln`` and ``attn``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, generator: torch.Generator, device=None):
+        super().__init__()
+        self.ln = init_norm(cfg.norm, cfg.d_model, dtype, device)
+        self.attn = attn_mod.init_cross_attn(cfg, dtype, generator, device)
+
+
 class LM(torch.nn.Module):
-    """Decoder-only LM parameters: ``embed`` (padded_vocab, d), ``layers``,
-    ``final_norm``, and ``lm_head`` (d, padded_vocab) when not tied."""
+    """Model parameters: ``embed`` (padded_vocab, d), ``layers``,
+    ``final_norm``, and ``lm_head`` (d, padded_vocab) when not tied; a vlm
+    adds ``vision_proj`` (vision_dim, d), an encdec ``encoder`` and one
+    ``cross`` block per decoder layer."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator, device=None):
         super().__init__()
-        _check_supported(cfg)
         dtype = dtype_of(cfg.dtype)
         self.embed = _param(embed_init((cfg.padded_vocab, cfg.d_model), generator,
                                        dtype=dtype, device=device))
@@ -121,6 +149,14 @@ class LM(torch.nn.Module):
                                              dtype=dtype, device=device))
         else:
             self.lm_head = None
+        if cfg.family == "vlm":
+            self.vision_proj = _param(embed_init((cfg.vision_dim, cfg.d_model), generator,
+                                                 dtype=dtype, device=device))
+        if cfg.family == "encdec":
+            self.encoder = Encoder(cfg, dtype, generator, device)
+            self.cross = torch.nn.ModuleList(
+                CrossBlock(cfg, dtype, generator, device) for _ in range(cfg.n_layers)
+            )
 
 
 def init_layer(cfg: ModelConfig, seq_kind: str, ffn_kind: str, dtype,
@@ -259,6 +295,54 @@ def _unembed(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return softcap(logits.float(), cfg.final_softcap)
 
 
+def _front_end(params: LM, cfg: ModelConfig,
+               batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, int]:
+    """Token (+ vision prefix) embedding.  Returns (x, n_prefix_positions)."""
+    x = _embed_tokens(params, cfg, batch["tokens"])
+    if cfg.family == "vlm" and "vision" in batch:
+        vis = batch["vision"].to(x.dtype) @ params.vision_proj
+        return torch.cat([vis, x], dim=1), vis.shape[1]
+    return x, 0
+
+
+def _sinusoidal(S: int, d: int, offset=0, device=None) -> torch.Tensor:
+    """The reference's float32 position table, sin and cos halves
+    concatenated: (1, S, d), or (B, S, d) for a (B,) tensor ``offset``
+    (decode's per-example positions)."""
+    off = torch.as_tensor(offset, device=device).to(torch.float32).reshape(-1, 1, 1)
+    pos = off + torch.arange(S, dtype=torch.float32, device=off.device)[None, :, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=off.device)
+    ang = pos / torch.pow(10_000.0, dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Encoder (whisper)
+# ---------------------------------------------------------------------------
+
+
+def encode(params: LM, cfg: ModelConfig, audio: torch.Tensor) -> torch.Tensor:
+    """audio: (B, enc_seq, d_model) — precomputed conv-frontend embeddings."""
+    dtype = dtype_of(cfg.dtype)
+    x = audio.to(dtype) + _sinusoidal(audio.shape[1], cfg.d_model,
+                                      device=audio.device).to(dtype)
+    enc = params.encoder
+    for lp in enc.layers:
+        h = apply_norm(cfg.norm, lp.ln1, x, cfg.norm_eps)
+        out, _ = attn_mod.attn_forward(lp.attn, h, cfg, causal=False)
+        x = x + out
+        h = apply_norm(cfg.norm, lp.ln2, x, cfg.norm_eps)
+        x = x + ffn_mod.dense_ffn(lp.ffn, h, cfg)
+    return apply_norm(cfg.norm, enc.final_norm, x, cfg.norm_eps)
+
+
+def _cross_block(params: LM, cfg: ModelConfig, i: int, x: torch.Tensor,
+                 enc_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    cp = params.cross[i]
+    h = apply_norm(cfg.norm, cp.ln, x, cfg.norm_eps)
+    return x + attn_mod.cross_attn_forward(cp.attn, h, enc_kv, cfg)
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence forward (prefill body)
 # ---------------------------------------------------------------------------
@@ -278,33 +362,48 @@ def forward(
     ``aux`` sums each MoE layer's ``moe_balance_loss`` and ``moe_dropped``
     over ``n_layers`` (a mean over all layers, dense ones counting zero).
     ``last_only`` computes logits for the final position only (serving
-    prefill needs just the next token)."""
-    _check_supported(cfg)
-    tokens = batch["tokens"]
-    x = _embed_tokens(params, cfg, tokens)
+    prefill needs just the next token).  A vlm's ``batch["vision"]`` (B,
+    vision_tokens, vision_dim) prefix takes positions ``[0, n_prefix)``,
+    the text's ``positions`` shift up by ``n_prefix``, and the prefix rows
+    get no logits; an encdec reads ``batch["audio"]`` (B, enc_seq, d)."""
+    x, n_prefix = _front_end(params, cfg, batch)
+    B, S, _ = x.shape
     positions = batch.get("positions")
     segment_ids = batch.get("segment_ids")
+    if positions is not None and n_prefix:
+        pre = torch.arange(n_prefix, dtype=positions.dtype, device=positions.device)
+        positions = torch.cat([pre.expand(B, n_prefix), positions + n_prefix], dim=1)
+    if not cfg.use_rope and cfg.family == "encdec":
+        x = x + _sinusoidal(S, cfg.d_model, device=x.device).to(x.dtype)
+    enc_kv = None
+    if cfg.family == "encdec":
+        enc_out = encode(params, cfg, batch["audio"])
+        enc_kv = [attn_mod.cross_kv(cp.attn, enc_out, cfg) for cp in params.cross]
     aux_acc: Dict[str, torch.Tensor] = {}
     caches: List[Dict] = []
-    if cfg.scan_layers and not want_cache:
+    if cfg.scan_layers and not want_cache and cfg.family == "lm":
         x, aux_acc = _forward_scanned(params, cfg, x, positions, segment_ids)
     else:
         for i, (lp, (s, f)) in enumerate(zip(params.layers, layer_plan(cfg))):
             x, kv, aux = layer_forward(lp, x, cfg, i, s, f, mode="full",
                                        positions=positions, segment_ids=segment_ids)
+            if enc_kv is not None:
+                x = _cross_block(params, cfg, i, x, enc_kv[i])
             for k, v in aux.items():
                 aux_acc[k] = aux_acc.get(k, 0.0) + v / cfg.n_layers
             if want_cache:
                 caches.append(kv)
     x = apply_norm(cfg.norm, params.final_norm, x, cfg.norm_eps)
+    if n_prefix:
+        x = x[:, n_prefix:]
     if last_only:
         x = x[:, -1:]
     logits = _unembed(params, cfg, x)
     cache = None
     if want_cache:
-        total = tokens.shape[1]
-        want_len = cache_len if cache_len is not None else total
-        cache = _grow_cache(cfg, caches, tokens.shape[0], total, want_len, x.device)
+        # the vision prefix holds cache positions too: S counts it
+        want_len = cache_len + n_prefix if cache_len is not None else S
+        cache = _grow_cache(cfg, caches, B, S, want_len, x.device, enc_kv)
     return logits, cache, aux_acc
 
 
@@ -343,10 +442,12 @@ def _kv_len(cfg: ModelConfig, layer: int, seq_len: int, cache_len: int) -> int:
 
 
 def _grow_cache(cfg: ModelConfig, caches: List[Dict], batch: int, total: int,
-                cache_len: int, device) -> Dict:
+                cache_len: int, device, enc_kv=None) -> Dict:
     """Pad prefill KV to ``cache_len`` slots (decode appends in place); a
     sliding-window layer keeps only its last ``window`` keys (see
-    :func:`_kv_len`).  SSM states pass through."""
+    :func:`_kv_len`).  SSM states pass through.  ``total`` counts the
+    positions consumed, a vision prefix included; an encdec's ``enc_kv``
+    (one (k, v) of (B, enc_seq, n_kv, hd) per layer) rides along."""
     out_layers = []
     for i, ((s, _), kv) in enumerate(zip(layer_plan(cfg), caches)):
         if s != "attn":
@@ -361,10 +462,13 @@ def _grow_cache(cfg: ModelConfig, caches: List[Dict], batch: int, total: int,
             k = torch.nn.functional.pad(k, pad)
             v = torch.nn.functional.pad(v, pad)
         out_layers.append({"k": k.contiguous(), "v": v.contiguous()})
-    return {
+    cache = {
         "layers": out_layers,
         "pos": torch.full((batch,), total, dtype=torch.int32, device=device),
     }
+    if enc_kv is not None:
+        cache["enc_kv"] = enc_kv
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +478,8 @@ def _grow_cache(cfg: ModelConfig, caches: List[Dict], batch: int, total: int,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device: DeviceLike = None) -> Dict:
-    _check_supported(cfg)
+    """An empty cache of ``cache_len`` positions (an encdec's ``enc_kv``
+    zeros too)."""
     dev = default_device(device)
     dtype = dtype_of(cfg.dtype)
     layers = []
@@ -392,7 +497,13 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
             layers.append(ssm_mod.mlstm_init_state(cfg, batch, dev))
         else:
             layers.append(ssm_mod.slstm_init_state(cfg, batch, device=dev))
-    return {"layers": layers, "pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
+    cache = {"layers": layers, "pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
+    if cfg.family == "encdec":
+        shape = (batch, cfg.enc_seq, cfg.n_kv, cfg.hd)
+        cache["enc_kv"] = [(torch.zeros(shape, dtype=dtype, device=dev),
+                            torch.zeros(shape, dtype=dtype, device=dev))
+                           for _ in range(cfg.n_layers)]
+    return cache
 
 
 def cache_zeros(cfg: ModelConfig, batch: int, seq_len: int, cache_len: int,
@@ -401,14 +512,19 @@ def cache_zeros(cfg: ModelConfig, batch: int, seq_len: int, cache_len: int,
     for ``batch`` prompts of ``seq_len`` tokens and ``cache_len``: the
     reference's scheduler allocates its slot cache so (from prefill's
     ``jax.eval_shape``).  Unlike :func:`init_cache`, the mLSTM and sLSTM
-    stabilisers ``m`` are 0 here, not -1e30.  Raises ``ValueError`` where
-    prefill would (a window that does not divide a longer prompt)."""
+    stabilisers ``m`` are 0 here, not -1e30.  The batch is the one the
+    scheduler feeds: a vlm's carries the vision prefix, which adds
+    ``vision_tokens`` rows to every K/V, and an encdec's cache has
+    ``enc_kv``.  Raises ``ValueError`` where prefill would (a window that
+    does not divide a longer prompt)."""
     cache = init_cache(cfg, batch, cache_len, device)
+    n_prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
     for i, layer in enumerate(cache["layers"]):
         for name, t in layer.items():
             shape = tuple(t.shape)
             if name in ("k", "v"):
-                shape = (batch, _kv_len(cfg, i, seq_len, cache_len)) + shape[2:]
+                rows = _kv_len(cfg, i, seq_len + n_prefix, cache_len + n_prefix)
+                shape = (batch, rows) + shape[2:]
             layer[name] = torch.zeros(shape, dtype=t.dtype, device=t.device)
     return cache
 
@@ -417,17 +533,26 @@ def decode_step(
     params: LM, cfg: ModelConfig, cache: Dict, tokens: torch.Tensor
 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  tokens: (B,1).  Returns (logits (B,1,V), cache);
-    the cache's K/V tensors are updated in place."""
+    the cache's K/V tensors are updated in place, and an encdec's
+    ``enc_kv`` comes back as it was."""
     pos = cache["pos"]
     x = _embed_tokens(params, cfg, tokens)
+    if not cfg.use_rope and cfg.family == "encdec":
+        # each example's sinusoid at its own offset
+        x = x + _sinusoidal(1, cfg.d_model, offset=pos).to(x.dtype)
     new_layers = []
     for i, (lp, (s, f)) in enumerate(zip(params.layers, layer_plan(cfg))):
         x, kv, _ = layer_forward(lp, x, cfg, i, s, f, mode="decode",
                                  cache=cache["layers"][i], pos=pos)
+        if cfg.family == "encdec":
+            x = _cross_block(params, cfg, i, x, cache["enc_kv"][i])
         new_layers.append(kv)
     x = apply_norm(cfg.norm, params.final_norm, x, cfg.norm_eps)
     logits = _unembed(params, cfg, x)
-    return logits, {"layers": new_layers, "pos": pos + 1}
+    new_cache = dict(cache)
+    new_cache["layers"] = new_layers
+    new_cache["pos"] = pos + 1
+    return logits, new_cache
 
 
 def prefill(

@@ -9,7 +9,13 @@ owns
   reference allocates it from prefill's ``jax.eval_shape``.  Attention
   K/V, Mamba, mLSTM and sLSTM states alike; an idle slot's mLSTM/sLSTM
   stabiliser starts at 0 as in the reference, which matters because idle
-  slots keep decoding and, in an MoE model, take expert capacity;
+  slots keep decoding and, in an MoE model, take expert capacity.  A vlm's
+  K/V rows hold the vision prefix too (``prompt_cap + max_new +
+  vision_tokens``), and an encdec's cache carries every layer's encoder
+  K/V (``enc_kv``), which an admit copies like the rest;
+* the **static model inputs** of a family — the reference's float32 zero
+  placeholders for ``vision`` (A, vision_tokens, vision_dim) or ``audio``
+  (A, enc_seq, d_model) — allocated once on the device, not per admit;
 * the **serving steps** of ``launch.steps.cached_serve_steps``;
 * an **admit/evict loop** — every tick first admits pending sequences into
   free slots (one fixed-shape prefill of ``admit_cap`` rows, copied into
@@ -102,6 +108,9 @@ def _scatter_rows(cache: Dict, cur_tok: torch.Tensor, new_cache: Dict,
     for c, n in zip(cache["layers"], new_cache["layers"]):
         for name, t in c.items():
             t.index_copy_(0, dst, n[name].index_select(0, src).to(t.dtype))
+    for c, n in zip(cache.get("enc_kv", ()), new_cache.get("enc_kv", ())):
+        for t, nt in zip(c, n):
+            t.index_copy_(0, dst, nt.index_select(0, src).to(t.dtype))
     cache["pos"].index_copy_(0, dst, new_cache["pos"].index_select(0, src))
     cur_tok.index_copy_(0, dst, new_tok.index_select(0, src))
 
@@ -112,6 +121,19 @@ def _scatter_vec(vec: torch.Tensor, new: torch.Tensor, slot_ids: np.ndarray) -> 
     kept = _kept_rows(slot_ids, vec.shape[0], vec.device)
     if kept is not None:
         vec.index_copy_(0, kept[1], new.index_select(0, kept[0]).to(vec.dtype))
+
+
+def extra_inputs(cfg: ModelConfig, batch: int, device) -> Dict[str, torch.Tensor]:
+    """The family's non-token model inputs as the reference's float32 zero
+    placeholders: ``vision`` for a vlm, ``audio`` for an encdec, none for
+    an lm."""
+    if cfg.family == "vlm":
+        shape = (batch, cfg.vision_tokens, cfg.vision_dim)
+        return {"vision": torch.zeros(shape, dtype=torch.float32, device=device)}
+    if cfg.family == "encdec":
+        shape = (batch, cfg.enc_seq, cfg.d_model)
+        return {"audio": torch.zeros(shape, dtype=torch.float32, device=device)}
+    return {}
 
 
 class ContinuousBatcher:
@@ -142,6 +164,7 @@ class ContinuousBatcher:
         )
         self.cache = cache_zeros(cfg, sched.slots, sched.prompt_cap, sched.cache_len,
                                  self.device)
+        self._extra_inputs = extra_inputs(cfg, sched.admit_width, self.device)
         self.cur_tok = torch.zeros((sched.slots, 1), dtype=torch.int32, device=self.device)
         self.cur_lp = torch.zeros((sched.slots, 1), dtype=torch.float32, device=self.device)
         #: (seq_id, position) -> logprob of every emission of the last tick
@@ -180,7 +203,8 @@ class ContinuousBatcher:
         toks = np.zeros((A, S), np.int32)
         for j, seq in enumerate(seqs):
             toks[j, : min(len(seq.tokens), S)] = seq.tokens[:S]
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch = dict(self._extra_inputs)
+        batch["tokens"] = torch.from_numpy(toks).to(self.device)
         if self.logprobs:
             next_tok, next_lp, new_cache = self.prefill_step(self.params, batch)
         else:

@@ -124,10 +124,12 @@ def test_smoke_serve_on_card_equals_host(cuda_device):
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "gemma2-27b",
-                                  "jamba-1.5-large-398b", "xlstm-125m"])
+                                  "jamba-1.5-large-398b", "xlstm-125m",
+                                  "phi-3-vision-4.2b", "whisper-tiny"])
 def test_family_smoke_serve_on_card_equals_host(cuda_device, arch):
     """Each model family's float32 smoke model (MoE, windows, gemma2, the
-    SSM blocks), same seeded parameters: the card serves the host's bytes."""
+    SSM blocks, the vision prefix, the encoder and cross attention), same
+    seeded parameters: the card serves the host's bytes."""
     cfg = smoke_config(get_config(arch))
     params_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     params_gpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(cuda_device)
@@ -341,6 +343,27 @@ def test_sharded_serve_on_card_equals_host(cuda_device):
     assert got == serve.serve_requests_sharded(params_cpu, cfg, wires, device="cpu", **kw)
     assert got == serve.serve_requests(params_gpu, cfg, wires, device=cuda_device,
                                        max_new=4, pad_to=16, slots=4)
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "whisper-tiny"])
+@pytest.mark.parametrize("plane", ["sharded", "streaming"])
+def test_multimodal_planes_on_card_equal_host(cuda_device, arch, plane):
+    """The vlm and encdec smoke models on the sharded and streaming planes
+    (3 shards; logprobs on the streaming one): the card answers with the
+    host's bytes and the batched plane's, through the frame kernels."""
+    cfg = smoke_config(get_config(arch))
+    params_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params_gpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(cuda_device)
+    wires = serve.synthetic_wires(cfg, 4, 3, seed=5)
+    kw = dict(max_new=4, pad_to=16, slots=4)
+    fn = (serve.serve_requests_sharded if plane == "sharded" else
+          lambda *a, **k: serve.serve_requests_streaming(*a, logprobs=True, **k))
+    fp.reset_launches()
+    got = fn(params_gpu, cfg, wires, device=cuda_device, n_shards=3, **kw)
+    assert fp.LAUNCHES["frame_batch"] >= 1 and fp.LAUNCHES["unpack_frames_batch"] >= 1
+    assert (fp.LAUNCHES["chunk_bursts"] >= 1) == (plane == "streaming")
+    assert got == fn(params_cpu, cfg, wires, device="cpu", n_shards=3, **kw)
+    assert got == serve.serve_requests(params_gpu, cfg, wires, device=cuda_device, **kw)
 
 
 # ---------------------------------------------------------------------------

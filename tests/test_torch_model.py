@@ -104,11 +104,19 @@ def test_init_params_shapes_and_seed(models):
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "phi-3-vision-4.2b"])
-def test_unported_families_raise(arch):
-    """The encdec and vlm families are the next slice; every lm
-    architecture initialises (tests/test_torch_families.py)."""
+def test_multimodal_families_initialise(arch):
+    """The encdec and vlm families initialise and build ``init_cache`` with
+    the reference's shapes (their parity: tests/test_torch_multimodal.py)."""
+    from repro.models.model import init_cache as j_init_cache
+
     cfg = smoke_config(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 12"):
-        init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 12"):
-        init_cache(cfg, 1, 8, "cpu")
+    jcfg = j_smoke_config(j_get_config(arch))
+    params = init_params(cfg, device="cpu")
+    extra = "encoder" if cfg.family == "encdec" else "vision_proj"
+    assert any(name.startswith(extra) for name, _ in params.named_parameters())
+    got, want = init_cache(cfg, 2, 8, "cpu"), j_init_cache(jcfg, 2, 8)
+    assert set(got) == set(want)
+    assert [tuple(t.shape) for layer in got["layers"] for t in layer.values()] == [
+        t.shape for layer in want["layers"] for t in layer.values()]
+    assert [tuple(t.shape) for kv in got.get("enc_kv", ()) for t in kv] == [
+        t.shape for kv in want.get("enc_kv", ()) for t in kv]
