@@ -62,7 +62,9 @@ What it does, in order (any failed check raises and the exit code is 1):
    phase 5's ``frame_stream`` calls, the only path that launches it;
    ``frame_batch`` and B6 at phase 6's, ``frame_batch`` also at phase
    7's) and at one large shape (2**20 frames of 68 words, 272 MiB), with
-   their times, bounds and plain and library times.  ``frame_batch``'s
+   their times, bounds and plain and library times.  B6 also in its word
+   form at 2**20 frames of 4 + 63 words and at the 68-word frames viewed
+   one word into their storage, each one launch == plain.  ``frame_batch``'s
    plain route is many calls (the structure pass, about a thousand eager
    ops, then ``torch.cat``); no one PyTorch call computes it.
 9. Fragment kernels (run last, after phase 10): B7's two forms against
@@ -152,7 +154,8 @@ What it does, in order (any failed check raises and the exit code is 1):
    ``frame_batch``, B6 and ``chunk_bursts`` counted and held to their
    plain versions at the recorded calls.  ``[mm]`` lines name the card
    and its power limit.  Phase 8 also re-times B6 against its two
-   ``.contiguous()`` slices at 2**20 frames in alternating rounds.
+   ``.contiguous()`` slices at 2**20 frames in alternating rounds, with its
+   share of the byte bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -659,12 +662,39 @@ def b6_against_slices(frames: torch.Tensor) -> None:
             acc.append(time_ms(fn, B6_ROUND_REPS, warmup=3))
     ratios = sorted(k / lib for k, lib in zip(ks, ls))
     med = statistics.median
+    bound_ms = call_bytes("unpack_frames_batch", frames) / HBM_BYTES_PER_S * 1e3
     log(f"[kernels] B6 vs slices at 2**20 frames, {B6_ROUNDS} alternating rounds of "
         f"{B6_ROUND_REPS} calls: kernel median {med(ks):.4f} ms (min {min(ks):.4f}, max "
-        f"{max(ks):.4f}), slices median {med(ls):.4f} ms (min {min(ls):.4f}, max "
+        f"{max(ks):.4f}), {100 * bound_ms / med(ks):.1f} % of its bound {bound_ms:.4f} ms; "
+        f"slices median {med(ls):.4f} ms (min {min(ls):.4f}, max "
         f"{max(ls):.4f}); kernel / slices per round: median {med(ratios):.4f}, min "
         f"{ratios[0]:.4f}, max {ratios[-1]:.4f}; kernel slower in "
         f"{sum(x > 1 for x in ratios)} of {B6_ROUNDS} rounds")
+
+
+def b6_word_form(dev, g) -> int:
+    """B6's word form at 2**20 frames: payloads of 63 words (not whole
+    phits), and frames of 68 words viewed one word into their storage (not
+    16-byte aligned).  Each == plain bit for bit in one launch; prints the
+    kernel's, plain and slices' times and the bound; returns the largest
+    max_abs_err."""
+    n = N_FRAMES_LARGE
+    buf = torch.randint(-2**31, 2**31, (1 + n * (4 + FRAME_WORDS),), dtype=torch.int32,
+                        device=dev, generator=g)
+    shapes = {f"2**20 x (4 + {FRAME_WORDS - 1})":
+              buf[:n * (3 + FRAME_WORDS)].view(n, 3 + FRAME_WORDS),
+              f"2**20 x (4 + {FRAME_WORDS}) +1 word": buf[1:].view(n, 4 + FRAME_WORDS)}
+    err = 0
+    for label, frames in shapes.items():
+        calls = [(frames,)]
+        r = measure("unpack_frames_batch", calls, reps=20)
+        lib = library_frame_ms("unpack_frames_batch", calls, 20)
+        err = max(err, r["max_abs_err"])
+        log(f"[kernels] {'unpack_frames_batch':20s} {label + ' (words)':22s} kernel "
+            f"{r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bytes']} B, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f} %)  plain {r['plain_ms']:.4f} ms  slices "
+            f".contiguous() {lib:.4f} ms  max_abs_err {r['max_abs_err']}")
+    return err
 
 
 def phase_frame_kernels(dev, recorded, stream_framing, joins):
@@ -717,6 +747,8 @@ def phase_frame_kernels(dev, recorded, stream_framing, joins):
                  {"pack_frames_batch": "torch.cat",
                   "unpack_frames_batch": "slices .contiguous()"}.get(name, ""))
     b6_against_slices(large["unpack_frames_batch"][0][0])
+    rows["unpack_frames_batch"]["large"]["max_abs_err"] = max(
+        rows["unpack_frames_batch"]["large"]["max_abs_err"], b6_word_form(dev, g))
     # frame_batch at the streaming serves' calls
     check(len(stream_framing) >= 1, "frame_batch: no streaming calls recorded")
     r = measure("frame_batch", stream_framing, 20)

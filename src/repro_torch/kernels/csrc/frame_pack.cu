@@ -74,9 +74,34 @@
 // ahead of one (a chain of 68 steps) and of 32 (one warp per frame).
 //
 // RX split (B6).  unpack_frames_batch splits delivered frames (rows, width)
-// back into headers (rows, 4) and payloads (rows, frame_words), one thread
-// per word of the framed side (coalesced there; the split side is two
-// contiguous arrays whose boundary moves by 4 words per row).
+// back into headers (rows, 4) and payloads (rows, frame_words), the mirror
+// of B5's join.  The frames are one flat run of units (a unit is a phit or
+// a word), and so are the two outputs: unit j = r * per_frame + c of the
+// frames, c the column in frame r, goes to hdr[r H + c] when c < H (the H
+// units of a header) and to pay[j - H (r + 1)] otherwise.  One kernel body,
+// two forms (template parameter T):
+//   * whole phits (T = uint4, H = 1): frame_words % 4 == 0 and all three
+//     base pointers 16-byte aligned, which every fabric call meets (the
+//     wrapper's two outputs are views of one buffer, the payloads at
+//     rows * 16 bytes).  A frame is 1 + P phits, each one 16-byte load and
+//     one 16-byte store; index math is 32-bit (the host refuses rows (1 + P)
+//     >= 2**32 phits);
+//   * words (T = uint32, H = 4): any other width, or a frames tensor whose
+//     base is not 16-byte aligned (a view at a storage offset); 32-bit index
+//     math where the words fit in 32 bits, 64-bit past that.
+// Layout: thread t takes units t, t + S, ..., t + (U - 1) S, S the grid's
+// threads (neighbouring threads take neighbouring units: loads are
+// coalesced, and stores too but where a warp crosses a frame edge), and
+// loads all U before it stores any: one phit, or four words, so 16 bytes
+// are in flight per thread in either form.  A thread divides once, for the
+// frame and column of its first unit; the next units' follow by adding the
+// grid stride in frames and units, which the host computes, with one
+// carry.  The grid holds a thread for every U units.  On an H100 at 2**20
+// frames these U were the fastest of 1, 2 and 4, grids that stride over the
+// frames (4 to 32 blocks per SM) were slower in both forms, and __ldcs /
+// __stcs changed nothing (PERF.md; scripts/b6_variants.py times those
+// variants of this body).  Bound: bytes (the frames read once, headers and
+// payloads written once).
 
 // Stream fragments (B7).  The streaming plane serializes every decode
 // tick's token and logprob fragments into bursts, one per lane.  A
@@ -179,6 +204,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kHdrWords = 4;
 constexpr int kChunkMetaWords = 3;  // stream_id, step, flags
+constexpr int kSplitPhitsPerThread = 1;  // B6's U, whole phits
+constexpr int kSplitWordsPerThread = 4;  // B6's U, words
 
 constexpr int kCrcTableWords = 4 * 256;
 // CRC lanes per frame of the build; the host makes log2(kCrcLanes) shift
@@ -314,20 +341,51 @@ __global__ void __launch_bounds__(kThreads) frame_kernel(const FrameArgs a) {
   }
 }
 
-__global__ void unpack_frames_kernel(const uint32_t* __restrict__ frames,
-                                     uint32_t* __restrict__ hdr,
-                                     uint32_t* __restrict__ pay, int64_t total,
-                                     int frame_words) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int width = kHdrWords + frame_words;
-  const int64_t row = i / width;
-  const int c = static_cast<int>(i - row * width);
-  const uint32_t v = __ldg(frames + i);
-  if (c < kHdrWords) {
-    hdr[row * kHdrWords + c] = v;
-  } else {
-    pay[row * frame_words + (c - kHdrWords)] = v;
+// Everything a split launch reads.
+struct SplitArgs {
+  const uint32_t* frames;  // (rows, width)
+  uint32_t* hdr;           // (rows, 4)
+  uint32_t* pay;           // (rows, width - 4)
+  unsigned long long n;          // units of the frames
+  unsigned long long step_rows;  // the grid's threads = step_rows * per_frame + step_cols
+  uint32_t per_frame;            // units of a frame
+  uint32_t step_cols;
+};
+
+template <typename T, typename Idx, int U>
+__global__ void __launch_bounds__(kThreads) split_kernel(const SplitArgs a) {
+  constexpr uint32_t H = kHdrWords * sizeof(uint32_t) / sizeof(T);  // units of a header
+  const T* __restrict__ src = reinterpret_cast<const T*>(a.frames);
+  T* __restrict__ hdr = reinterpret_cast<T*>(a.hdr);
+  T* __restrict__ pay = reinterpret_cast<T*>(a.pay);
+  const Idx stride = static_cast<Idx>(gridDim.x) * blockDim.x;
+  const Idx i = static_cast<Idx>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<Idx>(a.n)) return;
+  const Idx left = static_cast<Idx>(a.n) - i;  // (U - 1) stride < n: no index wraps
+  const uint32_t w = a.per_frame;
+  Idx r = i / w;  // the thread's one division
+  uint32_t c = static_cast<uint32_t>(i - r * w);
+  T v[U];
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+    if (k * stride < left) v[k] = __ldg(src + i + k * stride);
+  }
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+    if (k * stride < left) {
+      if (c < H) {
+        hdr[r * H + c] = v[k];
+      } else {
+        pay[i + k * stride - H * (r + 1)] = v[k];
+      }
+    }
+    // unit i + (k + 1) stride: one grid stride on, with one carry
+    c += a.step_cols;
+    r += static_cast<Idx>(a.step_rows);
+    if (c >= w) {
+      c -= w;
+      ++r;
+    }
   }
 }
 
@@ -550,6 +608,20 @@ inline uint32_t chunk_group_shift(int64_t width, int unroll) {
   return shift;
 }
 
+// One split launch of U units a thread: a grid of every unit's thread, the
+// grid stride split into frames and units for the kernel.
+template <typename T, typename Idx, int U>
+int launch_split(SplitArgs a, cudaStream_t stream) {
+  constexpr long long per_block = static_cast<long long>(U) * kThreads;
+  const long long blocks = (static_cast<long long>(a.n) + per_block - 1) / per_block;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  const unsigned long long stride = static_cast<unsigned long long>(blocks) * kThreads;
+  a.step_rows = stride / a.per_frame;
+  a.step_cols = static_cast<uint32_t>(stride % a.per_frame);
+  split_kernel<T, Idx, U><<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kTrim>
 int launch_chunks(ChunkArgs a, void* stream) {
   a.group_shift = chunk_group_shift(a.cap_w + kChunkMetaWords + 1, chunk_unroll<kTrim>());
@@ -610,11 +682,26 @@ int hgum_frame_batch(const void* pay, const void* nbytes, const void* routes,
 
 int hgum_unpack_frames_batch(const void* frames, void* hdr, void* pay, long long rows,
                              int frame_words, void* stream) {
-  const int64_t total = static_cast<int64_t>(rows) * (kHdrWords + frame_words);
-  unpack_frames_kernel<<<n_blocks(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(frames), static_cast<uint32_t*>(hdr),
-      static_cast<uint32_t*>(pay), total, frame_words);
-  return static_cast<int>(cudaGetLastError());
+  if (rows < 0 || frame_words < 0 || frame_words >= (1 << 30)) return cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(frames) |
+                          reinterpret_cast<uintptr_t>(hdr) | reinterpret_cast<uintptr_t>(pay);
+  const bool phits = frame_words % 4 == 0 && (bases & 15) == 0;
+  const long long width = kHdrWords + frame_words;
+  SplitArgs a = {};
+  a.frames = static_cast<const uint32_t*>(frames);
+  a.hdr = static_cast<uint32_t*>(hdr);
+  a.pay = static_cast<uint32_t*>(pay);
+  a.per_frame = static_cast<uint32_t>(phits ? width / 4 : width);
+  a.n = static_cast<unsigned long long>(rows) * a.per_frame;
+  const bool small = a.n < (1ULL << 32);  // 32-bit index math
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (phits) {
+    if (!small) return cudaErrorInvalidValue;
+    return launch_split<uint4, uint32_t, kSplitPhitsPerThread>(a, s);
+  }
+  if (small) return launch_split<uint32_t, uint32_t, kSplitWordsPerThread>(a, s);
+  return launch_split<uint32_t, unsigned long long, kSplitWordsPerThread>(a, s);
 }
 
 int hgum_pack_chunks_batch(const void* meta, const void* tokens, const void* counts,

@@ -31,7 +31,9 @@ PyTorch version with the same signature:
   (``frame_words % 4 == 0``).
 * :func:`unpack_frames_batch` — split ``(N, 4 + frame_words)`` delivered
   frames into headers ``(N, 4)`` and payloads ``(N, frame_words)``.
-  Replaces ``_split_kernel``.
+  Replaces ``_split_kernel``; one launch moves whole 16-byte phits (fabric
+  frames) or, for other widths and unaligned views, single words, into
+  two contiguous views of one buffer.
 * :func:`pack_chunks_batch` — one wire row ``[stream_id, step, flags |
   element words | count]`` per stream fragment from meta ``(B, 3)``,
   element words ``(B, capW)`` and counts ``(B, 1)``.  Replaces
@@ -494,8 +496,12 @@ def frame_batch(payloads: torch.Tensor, nbytes, routes, levels, frame_phits: int
 def unpack_frames_batch(frames: torch.Tensor, *, block: int = 8,
                         interpret: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split ``(N, 4 + frame_words)`` frames into (headers ``(N, 4)``,
-    payloads ``(N, frame_words)``).  ``block`` and ``interpret`` describe
-    the reference's Pallas grid; they are accepted and ignored."""
+    payloads ``(N, frame_words)``), both contiguous.  On the card they are
+    views of one buffer (the payloads from ``N * 16`` bytes on, so whole
+    phits stay 16-byte aligned), and one launch splits them (none for ``N
+    = 0``): whole phits where ``frame_words % 4 == 0`` and the frames start
+    on 16 bytes, single words otherwise.  ``block`` and ``interpret``
+    describe the reference's Pallas grid; they are accepted and ignored."""
     if frames.dim() != 2 or frames.shape[1] < HDR_WORDS:
         raise ValueError(f"frames must be (N, 4 + frame_words), got {tuple(frames.shape)}")
     if _on_cpu(frames):
@@ -504,12 +510,14 @@ def unpack_frames_batch(frames: torch.Tensor, *, block: int = 8,
     if rows * width > _MAX_WORDS:
         raise ValueError(f"{rows} frames of {width} words exceed one launch")
     frames = frames.contiguous()
-    hdr = torch.empty((rows, HDR_WORDS), dtype=torch.int32, device=frames.device)
-    pay = torch.empty((rows, width - HDR_WORDS), dtype=torch.int32, device=frames.device)
+    fw = width - HDR_WORDS
+    out = torch.empty(rows * width, dtype=torch.int32, device=frames.device)
+    hdr = out.as_strided((rows, HDR_WORDS), (HDR_WORDS, 1))
+    pay = out.as_strided((rows, fw), (fw, 1), rows * HDR_WORDS)
     if rows:
         _launch("unpack_frames_batch", (frames,), "hgum_unpack_frames_batch",
-                frames.data_ptr(), hdr.data_ptr(), pay.data_ptr(), rows,
-                width - HDR_WORDS, _stream(frames))
+                frames.data_ptr(), hdr.data_ptr(), pay.data_ptr(), rows, fw,
+                _stream(frames))
     return hdr, pay
 
 

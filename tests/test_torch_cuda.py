@@ -159,17 +159,48 @@ def test_pack_frames_kernel_equals_plain(cuda_device, B, F, fw):
     assert torch.equal(got, fp.pack_frames_batch_plain(hdr, pay))
 
 
-@pytest.mark.parametrize("N,fw", [(0, 64), (1, 64), (1, 4), (7, 4), (1000, 64), (33, 2000)])
-def test_unpack_frames_kernel_equals_plain(cuda_device, N, fw):
-    g = torch.Generator(device=cuda_device).manual_seed(N + fw)
-    fr = torch.randint(-2**31, 2**31, (N, 4 + fw), dtype=torch.int32, device=cuda_device,
-                       generator=g)
+@pytest.mark.parametrize("N,fw,offset", [
+    # whole phits
+    (0, 64, 0), (1, 64, 0), (1, 4, 0), (7, 4, 0), (1000, 64, 0), (33, 2000, 0),
+    # the word form: widths that are not whole phits
+    (1, 1, 0), (7, 3, 0), (1000, 5, 0), (33, 2001, 0),
+    # the word form: frames at a storage offset of 1, 2 or 3 words
+    (1000, 64, 1), (1000, 64, 2), (1000, 64, 3), (33, 5, 2),
+    # thousands of blocks (both forms)
+    (1 << 18, 64, 0), (1 << 18, 63, 0), (1 << 18, 64, 1),
+])
+def test_unpack_frames_kernel_equals_plain(cuda_device, N, fw, offset):
+    """B6 == its plain version bit for bit in one launch (none for N = 0),
+    both outputs contiguous."""
+    g = torch.Generator(device=cuda_device).manual_seed(N + fw + offset)
+    flat = torch.randint(-2**31, 2**31, (offset + N * (4 + fw),), dtype=torch.int32,
+                         device=cuda_device, generator=g)
+    fr = flat[offset:].view(N, 4 + fw)
     before = fp.LAUNCHES["unpack_frames_batch"]
     hdr, pay = fp.unpack_frames_batch(fr)
     torch.cuda.synchronize()
     assert fp.LAUNCHES["unpack_frames_batch"] == before + (1 if N else 0)
+    assert hdr.is_contiguous() and pay.is_contiguous()
     want = fp.unpack_frames_batch_plain(fr)
     assert torch.equal(hdr, want[0]) and torch.equal(pay, want[1])
+
+
+def test_unpack_frames_word_form_past_32_bits(cuda_device):
+    """The word form's 64-bit index math: 2**26 + 5 frames of 65 words
+    (more than 2**32 words, 17.4 GB) at a storage offset of one word."""
+    N, fw = (1 << 26) + 5, 61
+    flat = torch.empty(1 + N * (4 + fw), dtype=torch.int32, device=cuda_device)
+    flat.random_(generator=torch.Generator(device=cuda_device).manual_seed(3))
+    fr = flat[1:].view(N, 4 + fw)
+    assert fr.numel() > 2**32
+    before = fp.LAUNCHES["unpack_frames_batch"]
+    hdr, pay = fp.unpack_frames_batch(fr)
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["unpack_frames_batch"] == before + 1
+    assert hdr.is_contiguous() and pay.is_contiguous()
+    assert torch.equal(hdr, fr[:, :4]) and torch.equal(pay, fr[:, 4:])
+    del flat, fr, hdr, pay
+    torch.cuda.empty_cache()
 
 
 # frame_batch cases: (nbytes per stream, frame_phits, cap words); routes put

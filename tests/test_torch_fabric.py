@@ -130,6 +130,20 @@ def test_frame_kernels_plain_match_pallas(B, F, fw):
     np.testing.assert_array_equal(lanes_u32(gp), np.asarray(wp))
 
 
+@pytest.mark.parametrize("N,fw", [(1, 1), (9, 3), (17, 5)])
+def test_unpack_frames_plain_matches_pallas(N, fw):
+    """B6's CPU route against the Pallas split in interpret mode at widths
+    that are not whole phits (the card's word form; whole phits are held
+    above); both outputs contiguous."""
+    rng = np.random.default_rng(N * 1000 + fw)
+    flat = _u32(rng, (N, 4 + fw))
+    gh, gp = tpack.unpack_frames_batch(_lanes(flat))
+    wh, wp = jpack.unpack_frames_batch(jnp.asarray(flat))
+    assert gh.is_contiguous() and gp.is_contiguous()
+    np.testing.assert_array_equal(lanes_u32(gh), np.asarray(wh))
+    np.testing.assert_array_equal(lanes_u32(gp), np.asarray(wp))
+
+
 def test_encode_decode_frames_batch_match_jax():
     from repro.kernels import ops as jops
 
@@ -516,3 +530,72 @@ def test_tx_hook_corruption_flagged_like_jax():
         out.append(got)
     assert out[0] == out[1]
     assert sorted(d[3] for d in out[1]) == [False, True]
+
+
+# ---------------------------------------------------------------------------
+# ARQ on the example that fails the reference's test_arq_identity_property
+# ---------------------------------------------------------------------------
+
+
+def _rel_wires(rng, n, lo=10, hi=200):
+    """``tests/test_reliability.py``'s wires, copied."""
+    return [bytes(map(int, rng.integers(0, 256, int(rng.integers(lo, hi)))))
+            for _ in range(n)]
+
+
+def _rel_sends(wires):
+    """``tests/test_reliability.py``'s fixed multi-pair, multi-frame
+    workload over 8 ranks, copied."""
+    pairs = [(0, 4), (0, 4), (1, 5), (3, 2), (6, 0), (0, 4), (7, 1)]
+    return [(s, d, wires[i % len(wires)], 1 + i % 3) for i, (s, d) in enumerate(pairs)]
+
+
+def _rel_deliver(fab, sends, max_ticks=300):
+    """``tests/test_reliability.py``'s ``_deliver``: send everything, tick
+    until every message landed or ``max_ticks`` ran; returns the
+    deliveries as (src, dst, wire, ok, level, arrive_step) in arrival
+    order."""
+    for s, d, w, lvl in sends:
+        fab.send(s, d, w, list_level=lvl)
+    got = []
+    for _ in range(max_ticks):
+        fab.exchange()
+        for r in range(fab.n_ranks):
+            got += [(d.src, r, d.wire, d.ok, d.list_level, d.arrive_step) for d in fab.drain(r)]
+        if len(got) >= len(sends):
+            break
+    return got
+
+
+def _arq_counters(fab):
+    out = {}
+    for m in fab.metrics.snapshot()["metrics"]:
+        if m["type"] == "counter" and m["name"].startswith("fabric.arq."):
+            out[m["name"]] = out.get(m["name"], 0) + m["value"]
+    return out
+
+
+def test_arq_matches_reference_on_its_failing_property_example():
+    """The hypothesis example that fails the reference's
+    ``test_reliability::test_arq_identity_property`` (drop and corrupt
+    0.09375, duplicate 0.25) on that test's workload: the ARQ gives up on
+    one frame after ``max_retries`` (one abort) and stream (0, 4) gets a
+    short delivery flagged ``ok=False``.  The port does exactly what the
+    reference does: the same deliveries, ARQ counters and ticks."""
+    rng = np.random.default_rng(0)
+    sends = _rel_sends(_rel_wires(rng, 4))
+    plan = dict(seed=2005192213, drop=0.09375, corrupt=0.09375, duplicate=0.25)
+    kw = dict(frame_phits=2, credits=2, arq=True)  # the fused engine
+    jfab = JFabric(n_ranks=8, config=JConfig(**kw))
+    jfab.faults = JFaultPlan(**plan)
+    tfab = Fabric(n_ranks=8, config=FabricConfig(**kw), device="cpu")
+    tfab.faults = FaultPlan(**plan)
+    want, got = _rel_deliver(jfab, sends), _rel_deliver(tfab, sends)
+    assert got == want
+    assert _arq_counters(tfab) == _arq_counters(jfab)
+    assert tfab.ticks == jfab.ticks
+    assert _arq_counters(tfab)["fabric.arq.aborts"] == 1
+    clean = _rel_deliver(Fabric(n_ranks=8, config=FabricConfig(**kw), device="cpu"), sends)
+    assert all(d[3] for d in clean) and [d[3] for d in got].count(False) == 1
+    bad = next(d for d in got if not d[3])
+    assert bad[:2] == (0, 4) and len(bad[2]) < max(len(d[2]) for d in clean if d[:2] == (0, 4))
