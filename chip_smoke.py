@@ -116,7 +116,7 @@ What it does, in order (any failed check raises and the exit code is 1):
    calls (trace, spans, ``analyze_sends``), trace events per tick and the
    trace's split of a streaming tick into ``fabric.tick`` and the rest,
    each beside the card's name and power limit.
-12. Families (last, after every yi-6b phase): every other ``lm``
+12. Families (after every yi-6b phase): every other ``lm``
    architecture at full width, its depth cut to fit the card:
    phi3.5-moe-42b-a6.6b 16 of 32 layers (16 experts top-2 on every one),
    mixtral-8x22b 4 of 56 (8 experts top-2, window 4096), gemma2-27b 8 of
@@ -156,6 +156,24 @@ What it does, in order (any failed check raises and the exit code is 1):
    and its power limit.  Phase 8 also re-times B6 against its two
    ``.contiguous()`` slices at 2**20 frames in alternating rounds, with its
    share of the byte bound.
+14. Training (last, after phase 13): first the float32 smoke yi-6b takes
+   4 train steps on the card and on the host from the same parameters and
+   wires (losses and parameters must agree, TF32 off).  Then yi-6b at full
+   width (d 4096, 32 heads, kv 4, d_ff 11008, vocab 64000, tied, bf16), 8
+   of its 32 layers, seeded weights from a generator on the card:
+   ``HGumBatchPipeline(seed=0)`` wires of 8 x 2048 tokens through a
+   ``Prefetcher``, ``decode_batch`` on the card (exactly two B3
+   ``unpack_gather`` launches a step, each recorded call == plain) and
+   ``make_train_step`` (4 microbatches, remat "nothing") for 20 steps with
+   fp32 moments under ``linear_warmup_cosine(3e-4, 10, 20)``, then 3 with
+   q8 moments; every loss and grad norm must be finite; then 2 steps at a
+   constant 1e-6 on the last batch, from fresh fp32 moments, must lower
+   its loss.  Last, the train CLI's bitwise restart on the card
+   (xlstm-125m smoke, 16 steps, ``--die-at 12`` and ``--resume auto``
+   against the uninterrupted run, checkpoints equal bit for bit).
+   ``[train]`` lines name the card and its power limit, with step ms (CUDA
+   events), tokens/s, the ms inside ``decode_batch`` and ``adamw_update``,
+   peak memory, and B3 at a step's two calls against its byte bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -195,18 +213,23 @@ from repro_torch.core import (  # noqa: E402
     ser_sw_to_hw,
     strip_for_ser,
 )
+from repro_torch.checkpoint import CheckpointManager, load_checkpoint  # noqa: E402
 from repro_torch.core import fsm as host_fsm  # noqa: E402
+from repro_torch.data import HGumBatchPipeline, Prefetcher  # noqa: E402
+from repro_torch.data.pipeline import decode_batch  # noqa: E402
 from repro_torch.data.schemas import request_schema, response_schema  # noqa: E402
 from repro_torch.fabric import Fabric, FabricConfig, FaultPlan, frame_stream  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import frame_pack as fp  # noqa: E402
 from repro_torch.kernels import phit_unpack as pu  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.launch.steps import cached_serve_steps  # noqa: E402
-from repro_torch.models import init_params, param_count  # noqa: E402
+from repro_torch.launch import steps as steps_mod  # noqa: E402
+from repro_torch.launch.steps import cached_serve_steps, make_train_step  # noqa: E402
+from repro_torch.models import init_params, loss_fn, param_count  # noqa: E402
 from repro_torch.models import forward as model_forward  # noqa: E402
 from repro_torch.models import prefill as model_prefill  # noqa: E402
 from repro_torch.obs.metrics import window_stats  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init, linear_warmup_cosine  # noqa: E402
 from repro_torch.runtime.scheduler import extra_inputs  # noqa: E402
 from repro_torch import stream as stream_pkg  # noqa: E402
 from repro_torch.stream import plane as stream_plane  # noqa: E402
@@ -287,6 +310,20 @@ MULTIMODAL_STREAMING = ("whisper-tiny",)
 # B6 against its two .contiguous() slices at 2**20 frames (phase 8):
 # alternating rounds of this many calls each
 B6_ROUNDS, B6_ROUND_REPS = 21, 50
+# training (phase 14): yi-6b at full width, 8 of its 32 layers (its float32
+# master, moments and accumulator take about 20 B a parameter), batches of
+# 8 x 2048 tokens in its own 4 microbatches, 20 steps with fp32 moments
+# under a warmup-cosine schedule, then 3 with q8 moments at the schedule's
+# floor; the float32 smoke model's card == host run; the CLI's restart
+TRAIN_ARCH, TRAIN_LAYERS = "yi-6b", 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_Q8_STEPS = 8, 2048, 20, 3
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 10
+SMOKE_TRAIN = dict(steps=4, batch=4, seq=64, lr=1e-3, warmup=1)
+# descent on one batch (after the run): fresh fp32 moments, a constant rate
+# small enough for the first steps of a 1.6 B model from scratch
+DESCENT_LR, DESCENT_STEPS = 1e-6, 2
+RESTART_ARGS = ["--arch", "xlstm-125m", "--smoke", "--steps", "16", "--batch", "2",
+                "--seq", "32", "--ckpt-every", "4"]
 
 
 def log(msg: str) -> None:
@@ -1936,6 +1973,263 @@ def phase_multimodal(dev, card: str) -> list:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training
+# ---------------------------------------------------------------------------
+
+
+def smoke_train_parity(dev) -> str:
+    """The float32 smoke model of TRAIN_ARCH takes the same steps on the
+    card and on the host, from the same parameters (made on the host) and
+    the same wires.  Tolerance: losses ``rtol=1e-5``; parameters ``rtol=1e-4``
+    and an ``atol`` of 5 % of the steps' summed rates (AdamW's step is
+    normalized, so a grad element near zero passes its relative float32
+    noise on to its step whole)."""
+    cfg = smoke_config(get_config(TRAIN_ARCH))
+    st = SMOKE_TRAIN
+    pipe = HGumBatchPipeline(vocab=cfg.vocab, batch=st["batch"], seq=st["seq"], seed=SEED,
+                             device="cpu")
+    wires = [pipe.host_make_wire() for _ in range(st["steps"])]
+    lr_fn = linear_warmup_cosine(st["lr"], st["warmup"], st["steps"])
+    runs = {}
+    for d in ("cpu", dev):
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu").to(d)
+        opt = adamw_init(params)
+        step = make_train_step(cfg, AdamWConfig(lr=st["lr"]), lr_fn)
+        losses = []
+        for w in wires:
+            params, opt, m = step(params, opt, decode_batch(w, st["batch"], st["seq"], device=d))
+            losses.append(float(m["loss"]))
+        runs[str(d)] = (np.array(losses), {n: p.detach().cpu()
+                                           for n, p in params.named_parameters()})
+    (host_l, host_p), (card_l, card_p) = runs["cpu"], runs[str(dev)]
+    atol = 0.05 * sum(float(lr_fn(i)) for i in range(st["steps"]))
+    check(np.allclose(card_l, host_l, rtol=1e-5, atol=0),
+          f"smoke train: card losses {card_l} != host {host_l}")
+    dp = max(float((card_p[n] - host_p[n]).abs().max()) for n in host_p)
+    for n in host_p:
+        check(torch.allclose(card_p[n], host_p[n], rtol=1e-4, atol=atol),
+              f"smoke train: parameter {n} differs on card and host")
+    return (f"smoke model ({cfg.n_layers} layers, d{cfg.d_model}, float32, TF32 off): "
+            f"{st['steps']} steps of {st['batch']}x{st['seq']}, card == host: losses "
+            f"{[round(float(x), 6) for x in card_l]}, max |dloss| "
+            f"{np.abs(card_l - host_l).max():.3g}, "
+            f"max |dparam| {dp:.3g} (atol {atol:.3g})")
+
+
+def train_run(dev, card: str) -> dict:
+    """TRAIN_ARCH at full width: init on the card, HGumBatchPipeline wires
+    through a Prefetcher, decode_batch (B3, two launches a step) and
+    make_train_step; TRAIN_STEPS fp32-moment steps, then TRAIN_Q8_STEPS
+    with q8 moments.  Returns the launches, the recorded B3 calls and the
+    figures."""
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    check(cfg.remat and cfg.remat_policy == "nothing" and cfg.microbatch == 4
+          and cfg.dtype == "bfloat16", f"{TRAIN_ARCH}: unexpected training config")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    log(f"[train] {TRAIN_ARCH}: {cfg.n_layers} of {full.n_layers} layers, d{cfg.d_model}, "
+        f"{cfg.n_heads} heads, kv {cfg.n_kv}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16, "
+        f"{n_params} params, init + fp32 AdamW state {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    fp32_step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR),
+                                linear_warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    q8_cfg = AdamWConfig(lr=0.1 * TRAIN_LR, moments="q8")  # the schedule's floor
+    pipe = HGumBatchPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED,
+                             device=dev)
+    real_update = steps_mod.adamw_update
+    update_ms = []
+
+    def timed_update(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_update(*a, **k)
+        torch.cuda.synchronize()
+        update_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    rows, peak = [], {}
+    pf = Prefetcher(pipe.host_make_wire, depth=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        with mock.patch.object(steps_mod, "adamw_update", timed_update), \
+                pu.recording() as des_calls:
+            step_fn, moments = fp32_step, "fp32"
+            for i in range(TRAIN_STEPS + TRAIN_Q8_STEPS):
+                if i == TRAIN_STEPS:
+                    peak["fp32"] = torch.cuda.max_memory_allocated() / 2**30
+                    del opt
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    opt = adamw_init(params, "q8")
+                    step_fn, moments = make_train_step(cfg, q8_cfg), "q8"
+                wire = pf.get()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                batch = decode_batch(wire, TRAIN_BATCH, TRAIN_SEQ, device=dev)
+                torch.cuda.synchronize()
+                dec_ms = 1e3 * (time.perf_counter() - t)
+                check(pu.LAUNCHES["unpack_gather"] == 2 * (i + 1)
+                      and pu.LAUNCHES["unpack_run_aligned"] == 0,
+                      f"step {i}: decode_batch made {dict(pu.LAUNCHES)} launches, not two "
+                      f"unpack_gather a step")
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                params, opt, m = step_fn(params, opt, batch)
+                ev[1].record()
+                torch.cuda.synchronize()
+                loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+                check(np.isfinite(loss) and np.isfinite(gnorm),
+                      f"step {i}: loss {loss} / grad norm {gnorm} not finite")
+                rows.append(dict(step=i, moments=moments, loss=loss, gnorm=gnorm,
+                                 lr=float(m["lr"]), ms=ev[0].elapsed_time(ev[1]),
+                                 decode_ms=dec_ms, update_ms=update_ms[-1]))
+                log(f"[train] step {i:2d} ({moments}) loss {loss:.4f} gnorm {gnorm:.4f} lr "
+                    f"{rows[-1]['lr']:.3g} | step {rows[-1]['ms']:.1f} ms, decode_batch "
+                    f"{dec_ms:.3f} ms, adamw_update {update_ms[-1]:.1f} ms")
+    finally:
+        pf.close()
+    peak["q8"] = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_launches()
+    check(launches["unpack_gather"] == 2 * len(rows), f"B3 launches {launches}")
+    # descent: DESCENT_STEPS steps on the last batch, from fresh fp32
+    # moments at a constant DESCENT_LR, must lower that batch's loss
+    del opt
+    torch.cuda.empty_cache()
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, AdamWConfig(lr=DESCENT_LR))
+    with torch.no_grad():
+        descent = [float(loss_fn(params, cfg, batch)[0])]
+    for _ in range(DESCENT_STEPS):
+        params, opt, _ = step_fn(params, opt, batch)
+        with torch.no_grad():
+            descent.append(float(loss_fn(params, cfg, batch)[0]))
+    check(all(np.isfinite(descent)) and descent[-1] < descent[0],
+          f"{DESCENT_STEPS} steps on one batch did not lower its loss: {descent}")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launches=launches, des_calls=des_calls, peak=peak,
+                n_params=n_params, cfg=cfg, descent=descent)
+
+
+def restart_bitwise() -> float:
+    """The train CLI on the card, uninterrupted against killed at step 12
+    and resumed: the final checkpoints must be equal tensor for tensor, bit
+    for bit.  Returns the seconds taken."""
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+
+    def start(*extra):
+        return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train",
+                                 *RESTART_ARGS, *extra], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+
+    def finish(proc):
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d1, d2 = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        # the uninterrupted run and the one killed at step 12 side by side
+        procs = [start("--ckpt-dir", d1), start("--ckpt-dir", d2, "--die-at", "12")]
+        r, r2 = [finish(pr) for pr in procs]
+        check(r.returncode == 0 and "done" in r.stdout, f"train CLI failed: {r.stderr[-2000:]}")
+        check(r2.returncode == 17, f"--die-at 12 exited {r2.returncode}: {r2.stderr[-2000:]}")
+        r = finish(start("--ckpt-dir", d2, "--resume", "auto"))
+        check(r.returncode == 0 and "resumed from step 12" in r.stdout,
+              f"resume failed: {r.stderr[-2000:]}")
+        m1, m2 = CheckpointManager(d1), CheckpointManager(d2)
+        check(m1.latest() == m2.latest() == 16, "restart: no step-16 checkpoints")
+        (_, t1), (_, t2) = load_checkpoint(m1.path(16)), load_checkpoint(m2.path(16))
+        check(set(t1) == set(t2), "restart: checkpoints hold different tensors")
+        for k in t1:
+            check(t1[k].dtype == t2[k].dtype and np.array_equal(t1[k], t2[k]),
+                  f"restart: {k} differs after the resume")
+    return time.perf_counter() - t0
+
+
+#: H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, float32 CUDA cores
+BF16_FLOPS, FP32_FLOPS = 989e12, 67e12
+
+
+def train_step_bound_ms(cfg, n_params: int) -> dict:
+    """The least time of one train step of TRAIN_BATCH x TRAIN_SEQ tokens:
+    its bf16 matmuls (each layer's forward, its remat recompute and its
+    backward, 8 flops a weight a token; the tied unembedding 6) at the
+    bf16 peak plus the blocked attention's float32 products (QK and PV
+    over every (query, key) pair, as the tiles compute them: forward,
+    recompute and a backward of twice the forward) at the float32 peak;
+    and ``adamw_update``'s bytes (grads read, fp32 moments and master read
+    and written, bf16 parameters written: 30 B a parameter) at the
+    memory rate."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    d, hd = cfg.d_model, cfg.hd
+    per_layer = d * (2 * cfg.n_heads * hd + 2 * cfg.n_kv * hd) + 3 * d * cfg.d_ff
+    head = cfg.padded_vocab * d
+    gemm = 8 * per_layer * cfg.n_layers * tokens + 6 * head * tokens
+    attn = 4 * (4 * TRAIN_BATCH * TRAIN_SEQ**2 * cfg.n_heads * hd) * cfg.n_layers
+    return {"gemm_ms": gemm / BF16_FLOPS * 1e3, "attn_ms": attn / FP32_FLOPS * 1e3,
+            "adamw_ms": 30 * n_params / HBM_BYTES_PER_S * 1e3, "gemm": gemm, "attn": attn}
+
+
+def phase_train(dev, card: str) -> list:
+    """Phase 14: the training path (see the module docstring)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[train] {card} | {smoke_train_parity(dev)}")
+    res = train_run(dev, card)
+    rows, cfg = res["rows"], res["cfg"]
+    fp32 = [r for r in rows if r["moments"] == "fp32"]
+    steady = [r for r in fp32 if r["step"] >= 2]
+    step_ms = statistics.median(r["ms"] for r in steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    calls = [(wire,) + tuple(args) for _, wire, args in res["des_calls"]]
+    hold_recorded(res["des_calls"], [])
+    b3 = measure("unpack_gather", calls[:2], reps=200)
+    b3["library_ms"] = sum(byte_gather_ms(c[0], c[1:], 200) for c in calls[:2])
+    log(f"[train] {TRAIN_ARCH} ({cfg.n_layers} of 32 layers, {res['n_params']} params) | {card} | "
+        f"{TRAIN_STEPS} fp32 steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens ({cfg.microbatch} "
+        f"microbatches, remat '{cfg.remat_policy}'): loss {fp32[0]['loss']:.4f} -> "
+        f"{fp32[-1]['loss']:.4f}; step {step_ms:.1f} ms (median of steps 2-"
+        f"{TRAIN_STEPS - 1}, CUDA events), {tokens / step_ms * 1e3:.1f} tokens/s | "
+        f"decode_batch {statistics.median(r['decode_ms'] for r in steady):.3f} ms, "
+        f"adamw_update {statistics.median(r['update_ms'] for r in steady):.1f} ms (medians, "
+        f"host clock around synchronized calls) | peak {res['peak']['fp32']:.2f} GiB")
+    bound = train_step_bound_ms(cfg, res["n_params"])
+    log(f"[train] {TRAIN_ARCH} | {card} | step bound {bound['gemm_ms'] + bound['attn_ms']:.1f} "
+        f"ms: bf16 matmuls {bound['gemm']:.4g} flop at 989 TFLOP/s {bound['gemm_ms']:.1f} ms + "
+        f"float32 attention {bound['attn']:.4g} flop at 67 TFLOP/s {bound['attn_ms']:.1f} ms; "
+        f"step at {(bound['gemm_ms'] + bound['attn_ms']) / step_ms:.1%} of it | adamw_update "
+        f"byte bound {bound['adamw_ms']:.1f} ms (30 B a parameter at 3.35 TB/s)")
+    q8 = [r for r in rows if r["moments"] == "q8"]
+    log(f"[train] {TRAIN_ARCH} | {card} | {len(q8)} q8 steps: loss "
+        f"{[round(r['loss'], 4) for r in q8]}, step {statistics.median(r['ms'] for r in q8):.1f} "
+        f"ms, adamw_update {statistics.median(r['update_ms'] for r in q8):.1f} ms, peak "
+        f"{res['peak']['q8']:.2f} GiB")
+    log(f"[train] {TRAIN_ARCH} | {card} | descent: {DESCENT_STEPS} steps at lr {DESCENT_LR:g} on "
+        f"the last batch, its loss {[round(x, 4) for x in res['descent']]}")
+    log(f"[train] {card} | B3 unpack_gather: {res['launches']['unpack_gather']} launches "
+        f"({len(rows)} steps x 2), == plain at the {len(calls)} recorded calls; at one step's "
+        f"2 calls ({calls[0][1].numel()} offsets each): kernel {b3['ms']:.4f} ms, bound "
+        f"{b3['bound_ms']:.6f} ms ({b3['bytes']} B), plain {b3['plain_ms']:.4f} ms, byte "
+        f"gather & mask {b3['library_ms']:.4f} ms")
+    dt = restart_bitwise()
+    log(f"[train] {card} | train CLI restart on the card (xlstm-125m smoke, 16 steps, "
+        f"--die-at 12 then --resume auto): final checkpoints equal bit for bit ({dt:.1f} s)")
+    log(f"[train] phase 14: {time.perf_counter() - t0:.1f} s")
+    return [res["launches"]]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1981,6 +2275,7 @@ def main() -> int:
     rows.update(phase_chunk_kernel(dev, padded_calls, burst_calls))
     path_launches += phase_families(dev, card)
     path_launches += phase_multimodal(dev, card)
+    path_launches += phase_train(dev, card)
 
     records = []
     for name, (source, replaces, _, _, _) in KERNELS.items():

@@ -1,1 +1,2 @@
-"""Entry points: the batched serving plane (``serve``) and its steps (``steps``)."""
+"""Entry points: the serving planes (``serve``), the training driver
+(``train``) and their steps (``steps``)."""

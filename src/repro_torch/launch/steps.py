@@ -1,15 +1,17 @@
-"""Serving step functions (prefill / decode), greedy and eager.
+"""Step functions (train / prefill / decode), eager.
 
-Counterpart of the serving half of ``repro.launch.steps``.  PyTorch runs
-eagerly, so there is nothing to trace: ``cached_serve_steps`` memoizes the
-step closures on (cfg, cache_len, logprobs) only so the scheduler can
-re-enter the same functions every tick, as the reference re-enters its
-jitted ones.  With ``logprobs=True`` the steps also return the chosen
+Counterpart of ``repro.launch.steps``.  PyTorch runs eagerly, so there is
+nothing to trace: ``cached_serve_steps`` memoizes the serving step
+closures on (cfg, cache_len, logprobs) only so the scheduler can re-enter
+the same functions every tick, as the reference re-enters its jitted
+ones.  With ``logprobs=True`` the serving steps also return the chosen
 token's float32 log-probability (the typed logprob stream's payload).
 The steps serve every model family: a vlm's or encdec's batch carries its
 ``vision`` or ``audio`` input beside the tokens
-(``runtime.scheduler.extra_inputs``).  Training steps and input specs are
-not ported yet.
+(``runtime.scheduler.extra_inputs``).  The train step runs where the
+model's parameters live (``init_params`` puts them on the card by
+default).  The ShapeDtypeStruct input specs of the reference belong to
+the multi-device drivers (ROADMAP.md queue A item 14).
 """
 from __future__ import annotations
 
@@ -18,7 +20,33 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from ..models.model import LM, decode_step, prefill
+from ..models.model import LM, decode_step, loss_fn, prefill
+from ..optim import AdamWConfig, OptState, adamw_update, microbatched_grads
+
+_MESH_TODO = "ROADMAP.md queue A item 14 (multi-device drivers)"
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, lr_fn=None,
+                    grad_shardings=None, micro_sharding_fn=None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: ``cfg.microbatch`` microbatches of :func:`loss_fn`, then one
+    AdamW step at ``lr_fn(opt_state.step)``.  The parameters are updated in
+    place.  The reference's mesh arguments take ``None`` only."""
+    if grad_shardings is not None or micro_sharding_fn is not None:
+        raise NotImplementedError(f"grad_shardings / micro_sharding_fn need a mesh: "
+                                  f"{_MESH_TODO}")
+    lr_fn = lr_fn or (lambda step: opt_cfg.lr)
+
+    def train_step(params: LM, opt_state: OptState, batch: Dict[str, torch.Tensor]):
+        loss, grads, metrics = microbatched_grads(
+            lambda p, b: loss_fn(p, cfg, b), params, batch, cfg.microbatch)
+        lr = lr_fn(opt_state.step)
+        params, opt_state, opt_metrics = adamw_update(grads, opt_state, params, opt_cfg, lr)
+        metrics.update(opt_metrics)
+        metrics["lr"] = lr
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def _greedy_with_logprob(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

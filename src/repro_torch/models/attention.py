@@ -56,9 +56,12 @@ def attn_forward(
     causal: bool = True,
     window: Optional[int] = None,
     positions: Optional[torch.Tensor] = None,  # (B,S)
+    segment_ids: Optional[torch.Tensor] = None,  # (B,S)
     q_offset: int = 0,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence attention; returns (out, (k, v)) for cache priming."""
+    """Full-sequence attention; returns (out, (k, v)) for cache priming.
+    ``segment_ids`` (packed sequences) keep each query to its own
+    segment's keys."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     if cfg.use_rope:
@@ -69,7 +72,8 @@ def attn_forward(
         k = apply_rope(k, positions, cfg.rope_theta)
     out = flash_attention(
         q, k, v, causal=causal, window=window, logit_cap=cfg.attn_softcap,
-        q_offset=q_offset,
+        q_offset=q_offset, segment_q=segment_ids, segment_k=segment_ids,
+        p_bf16=cfg.attn_p_bf16,
     )
     out = out.reshape(B, S, cfg.n_heads * cfg.hd) @ p.wo
     return out, (k, v)

@@ -1,9 +1,11 @@
-"""Shared model components in plain torch: norms, RoPE, initializers, attention.
+"""Shared model components in plain torch: norms, RoPE, initializers,
+attention, the loss.
 
 Counterpart of ``repro.models.common``.  Parameters keep the reference's
 layout (``x @ W`` with ``W`` shaped ``(d_in, d_out)``), and the numerics
 follow it where they matter for parity: norms, RoPE angles, attention
-scores and ``p @ v`` in float32, cast back to the working dtype after.
+scores and ``p @ v`` in float32 (``p`` in bf16 where the config asks),
+the loss's logsumexp in float32, cast back to the working dtype after.
 Initialization draws from an explicit ``torch.Generator``; it does not
 reproduce the reference's JAX random bits (use
 ``models.model.params_from_jax`` to carry reference weights over).
@@ -11,7 +13,7 @@ reproduce the reference's JAX random bits (use
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,8 +89,22 @@ def init_norm(kind: str, d: int, dtype, device=None) -> Norm:
     return Norm(kind, d, dtype, device)
 
 
+def path_parts(name: str) -> Tuple:
+    """A parameter name as the reference pytree's path: dict keys, and
+    list indices as ints (``layers.0.attn.wq`` -> ``('layers', 0, 'attn',
+    'wq')``).  Sorting names by it gives the reference's flatten order."""
+    return tuple(int(x) if x.isdigit() else x for x in name.split("."))
+
+
+def keystr(parts: Tuple) -> str:
+    """``jax.tree_util.keystr`` of a path of dict keys and list indices."""
+    return "".join(f"[{p}]" if isinstance(p, int) else f"[{p!r}]" for p in parts)
+
+
 def _param(t: torch.Tensor) -> torch.nn.Parameter:
-    """Inference parameters: the serving plane never takes gradients."""
+    """A parameter built without ``requires_grad``: serving takes no
+    gradients; ``optim.microbatched_grads`` turns them on for the model it
+    trains."""
     return torch.nn.Parameter(t, requires_grad=False)
 
 
@@ -154,48 +170,71 @@ def flash_attention(
     window: Optional[int] = None,
     logit_cap: Optional[float] = None,
     q_offset: int = 0,
+    segment_q: Optional[torch.Tensor] = None,  # (B, S)
+    segment_k: Optional[torch.Tensor] = None,  # (B, T)
+    kv_len: Optional[torch.Tensor] = None,  # valid prefix length of k/v
     block_q: int = 512,
     block_k: int = 1024,
     scale: Optional[float] = None,
+    p_bf16: bool = False,
 ) -> torch.Tensor:
     """Double-blocked online-softmax attention, as the reference computes
-    it: scores and ``p @ v`` in float32, one (block_q, block_k) tile at a
-    time, so (S, T) is never materialized.  Returns (B, S, K, G, D).
+    it: scores and ``p @ v`` in float32 (``p`` and ``v`` cast to bf16 for
+    the product when ``p_bf16``), one (block_q, block_k) tile at a time, so
+    (S, T) is never materialized.  Returns (B, S, K, G, D).
 
-    Segment ids, ``kv_len`` and ``p_bf16`` of the reference are not ported
-    yet (the serving plane passes none of them)."""
+    A query attends to a key only where their segment ids are equal
+    (packed sequences), and only to keys below ``kv_len``.  The reference
+    pads S and T to whole blocks (pad segments -1 for queries, -2 for
+    keys, never equal); here the last tiles are short instead, which masks
+    the same keys: a padded key only ever adds ``exp(-1e30 - m) = 0``.
+    Under autograd each tile's float32 scores are kept for the backward
+    pass (per-layer remat bounds that to one layer)."""
     B, S, K, G, D = q.shape
     T = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     block_q = min(block_q, S)
     block_k = min(block_k, T)
     dev = q.device
+    t_end = T if kv_len is None else kv_len
     outs = []
     for q0 in range(0, S, block_q):
         qb = q[:, q0:q0 + block_q].float()
         bq = qb.shape[1]
         q_pos = q_offset + q0 + torch.arange(bq, device=dev)
+        sqb = segment_q[:, q0:q0 + bq] if segment_q is not None else None
         acc = torch.zeros((B, bq, K, G, D), dtype=torch.float32, device=dev)
         m_run = torch.full((B, bq, K, G), NEG_INF, dtype=torch.float32, device=dev)
         l_run = torch.zeros((B, bq, K, G), dtype=torch.float32, device=dev)
         for k0 in range(0, T, block_k):
             kb = k[:, k0:k0 + block_k].float()
-            vb = v[:, k0:k0 + block_k].float()
-            k_pos = k0 + torch.arange(kb.shape[1], device=dev)
+            vb = v[:, k0:k0 + block_k]
+            bk = kb.shape[1]
+            k_pos = k0 + torch.arange(bk, device=dev)
             s = torch.einsum("bqkgd,btkd->bqkgt", qb, kb) * scale
             s = softcap(s, logit_cap)
-            ok = torch.ones((bq, kb.shape[1]), dtype=torch.bool, device=dev)
+            ok = (k_pos < t_end)[None, :].expand(bq, bk)
             if causal:
                 ok = ok & (q_pos[:, None] >= k_pos[None, :])
             if window is not None:
                 ok = ok & (q_pos[:, None] - k_pos[None, :] < window)
-            mask = torch.where(ok, 0.0, NEG_INF).to(torch.float32)
-            s = s + mask[None, :, None, None, :]
+            if sqb is not None:
+                skb = segment_k[:, k0:k0 + bk]
+                ok = ok[None] & (sqb[:, :, None] == skb[:, None, :])
+            else:
+                ok = ok[None]
+            mask = torch.where(ok, 0.0, NEG_INF).to(torch.float32)  # (B?, bq, bk)
+            s = s + mask[:, :, None, None, :]
             m_new = torch.maximum(m_run, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m_run - m_new)
             l_run = l_run * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum("bqkgt,btkd->bqkgd", p, vb)
+            if p_bf16:  # p is the (S, T) stream: bf16 halves its bytes
+                pv = torch.einsum("bqkgt,btkd->bqkgd", p.to(torch.bfloat16),
+                                  vb.to(torch.bfloat16)).float()
+            else:
+                pv = torch.einsum("bqkgt,btkd->bqkgd", p, vb.float())
+            acc = acc * corr[..., None] + pv
             m_run = m_new
         outs.append(acc / torch.clamp(l_run[..., None], min=1e-30))
     return torch.cat(outs, dim=1).to(q.dtype)
@@ -221,3 +260,32 @@ def decode_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqkgt,btkd->bqkgd", p, v_cache.float())
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(
+    logits: torch.Tensor,  # (B, S, V)
+    targets: torch.Tensor,  # (B, S) int
+    mask: Optional[torch.Tensor] = None,  # (B, S) 0/1
+    z_loss: float = 0.0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Masked mean next-token NLL with the reference's z-loss
+    (``z_loss * logsumexp**2`` per position), all in float32; metrics
+    ``loss``, ``accuracy`` (argmax == target, masked mean) and ``tokens``
+    (the mask's sum)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse**2
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    with torch.no_grad():
+        acc = ((logits.argmax(-1) == targets.long()) * mask).sum() / denom
+    return loss, {"loss": loss, "accuracy": acc, "tokens": mask.sum().detach()}

@@ -26,22 +26,46 @@ The decode path updates attention K/V caches in place (the reference
 returns a new cache; here the old one is dead after the step, so writing
 into it saves a copy of the whole cache per step).  SSM states are small
 and come back as new tensors, as in the reference.
+
+Training: :func:`loss_fn` is the reference's (float32 cross entropy with
+z-loss 1e-4, plus 0.01 x the MoE balance loss); ``batch["segment_ids"]``
+packs several documents into a row (a vlm's vision prefix joins the
+first segment).  Under autograd, ``cfg.remat`` recomputes each layer (or
+each scanned period) in the backward pass (``torch.utils.checkpoint``,
+non-reentrant); ``remat_policy="dots"`` keeps the matmul outputs, as the
+reference's ``checkpoint_dots`` does.  :func:`opt_state_from_jax` carries
+a reference optimizer state over, and :func:`by_ref_path` keys grads or
+moments by the reference's pytree paths.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, default_device
 from . import attention as attn_mod
 from . import ffn as ffn_mod
 from . import ssm as ssm_mod
-from .common import _param, apply_norm, dtype_of, embed_init, init_norm, softcap
-
-_TRAIN_TODO = "ROADMAP.md queue A item 13 (training side)"
+from .common import (
+    _param,
+    apply_norm,
+    cross_entropy,
+    dtype_of,
+    embed_init,
+    init_norm,
+    keystr,
+    path_parts,
+    softcap,
+)
 
 #: sequence mixers other than attention: (init, full-sequence form, one-step form)
 _SSM_KINDS = {
@@ -183,22 +207,67 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
     Every parameter keeps its own dtype, which must be the reference's."""
     dev = default_device(device)
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    names = dict(model.named_parameters())
-    want = set(names)
     with torch.no_grad():
-        for name, p in names.items():
-            node = np_tree
-            for part in name.split("."):
-                node = node[int(part)] if isinstance(node, (list, tuple)) else node[part]
-            ref = np.asarray(node)
-            if ref.shape != tuple(p.shape) or str(ref.dtype) != str(p.dtype)[len("torch."):]:
-                raise ValueError(f"{name}: reference {ref.dtype}{ref.shape} != "
-                                 f"{p.dtype}{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(ref.astype(np.float32)).to(p.dtype))
-            want.discard(name)
-    if want:  # pragma: no cover - every name was visited above
-        raise ValueError(f"parameters not carried over: {sorted(want)}")
+        for name, p in model.named_parameters():
+            p.copy_(_from_ref(_ref_leaf(np_tree, name), name, p.shape, p.dtype))
     return model
+
+
+def _ref_leaf(np_tree, name: str):
+    """The leaf of a reference pytree at a port parameter name."""
+    node = np_tree
+    for part in path_parts(name):
+        node = node[part]
+    return node
+
+
+def _from_ref(node, name: str, shape, dtype: torch.dtype) -> torch.Tensor:
+    """A reference float leaf (numpy) as a CPU tensor of ``dtype`` (bfloat16
+    through float32, exactly), its shape and dtype checked."""
+    ref = np.asarray(node)
+    if ref.shape != tuple(shape) or str(ref.dtype) != str(dtype)[len("torch."):]:
+        raise ValueError(f"{name}: reference {ref.dtype}{ref.shape} != "
+                         f"{dtype}{tuple(shape)}")
+    return torch.from_numpy(ref.astype(np.float32)).to(dtype)
+
+
+def opt_state_from_jax(np_state, params: "LM"):
+    """A reference ``OptState`` (fp32 or q8 moments), exported as numpy
+    arrays (``jax.tree.map(np.asarray, state)``), as the port's
+    ``optim.OptState`` keyed by ``params``' parameter names, on their
+    device; float32 leaves stay float32, q8's ``{'q', 's'}`` stay int8
+    and float32, and its bf16 ``nu`` stays bf16."""
+    from ..optim import OptState
+
+    named = dict(params.named_parameters())
+    dev = next(iter(named.values())).device
+
+    def moments(tree, dtype):
+        return {n: _from_ref(_ref_leaf(tree, n), n, p.shape, dtype).to(dev)
+                for n, p in named.items()}
+
+    nu_dtype = torch.float32
+    mu = {}
+    for n, p in named.items():
+        leaf = _ref_leaf(np_state.mu, n)
+        if isinstance(leaf, dict):  # q8: int8 blocks and float32 scales
+            nu_dtype = torch.bfloat16
+            mu[n] = {k: torch.from_numpy(np.asarray(leaf[k]).copy()).to(dev)
+                     for k in ("q", "s")}
+        else:
+            mu[n] = _from_ref(leaf, n, p.shape, torch.float32).to(dev)
+    step = torch.tensor(int(np.asarray(np_state.step)), dtype=torch.int32, device=dev)
+    return OptState(step=step, mu=mu, nu=moments(np_state.nu, nu_dtype),
+                    master=moments(np_state.master, torch.float32))
+
+
+def by_ref_path(named: Dict[str, Any]) -> Dict[str, Any]:
+    """A dict keyed by the port's parameter names (grads, moments) keyed
+    by the reference pytree's paths (``jax.tree_util.keystr``:
+    ``layers.0.attn.wq`` -> ``['layers'][0]['attn']['wq']``), in the
+    reference's flatten order."""
+    items = sorted(named.items(), key=lambda kv: path_parts(kv[0]))
+    return {keystr(path_parts(n)): v for n, v in items}
 
 
 def param_count(params: LM) -> int:
@@ -237,10 +306,8 @@ def layer_forward(
     q_offset: int = 0,
 ) -> Tuple[torch.Tensor, Dict, Dict]:
     """Returns (x, new_cache, aux); ``aux`` holds the MoE FFN's
-    ``moe_balance_loss`` and ``moe_dropped``, and is empty otherwise."""
-    if segment_ids is not None:
-        raise NotImplementedError(f"segment_ids (packed sequences) are not ported yet: "
-                                  f"{_TRAIN_TODO}")
+    ``moe_balance_loss`` and ``moe_dropped``, and is empty otherwise.
+    ``segment_ids`` reach the attention mixer only, as in the reference."""
     aux: Dict = {}
     h = apply_norm(cfg.norm, p.ln1, x, cfg.norm_eps)
     window = cfg.window if cfg.attn_is_local(layer_idx) else None
@@ -249,7 +316,8 @@ def layer_forward(
             out, new_cache = attn_mod.attn_decode(p.attn, h, cfg, cache, pos, window=window)
         else:
             out, (k, v) = attn_mod.attn_forward(p.attn, h, cfg, window=window,
-                                                positions=positions, q_offset=q_offset)
+                                                positions=positions, segment_ids=segment_ids,
+                                                q_offset=q_offset)
             new_cache = {"k": k, "v": v}
     elif seq_kind in _SSM_KINDS:
         _, full_fn, decode_fn = _SSM_KINDS[seq_kind]
@@ -365,11 +433,16 @@ def forward(
     prefill needs just the next token).  A vlm's ``batch["vision"]`` (B,
     vision_tokens, vision_dim) prefix takes positions ``[0, n_prefix)``,
     the text's ``positions`` shift up by ``n_prefix``, and the prefix rows
-    get no logits; an encdec reads ``batch["audio"]`` (B, enc_seq, d)."""
+    get no logits and join the text's first segment; an encdec reads
+    ``batch["audio"]`` (B, enc_seq, d).  Under autograd, ``cfg.remat``
+    recomputes each layer (with its cross block) in the backward pass."""
     x, n_prefix = _front_end(params, cfg, batch)
     B, S, _ = x.shape
     positions = batch.get("positions")
     segment_ids = batch.get("segment_ids")
+    if segment_ids is not None and n_prefix:
+        pre = segment_ids[:, :1].expand(B, n_prefix)
+        segment_ids = torch.cat([pre, segment_ids], dim=1)
     if positions is not None and n_prefix:
         pre = torch.arange(n_prefix, dtype=positions.dtype, device=positions.device)
         positions = torch.cat([pre.expand(B, n_prefix), positions + n_prefix], dim=1)
@@ -381,14 +454,19 @@ def forward(
         enc_kv = [attn_mod.cross_kv(cp.attn, enc_out, cfg) for cp in params.cross]
     aux_acc: Dict[str, torch.Tensor] = {}
     caches: List[Dict] = []
+    def run_layer(x, i, lp, s, f):
+        x, kv, aux = layer_forward(lp, x, cfg, i, s, f, mode="full",
+                                   positions=positions, segment_ids=segment_ids)
+        if enc_kv is not None:
+            x = _cross_block(params, cfg, i, x, enc_kv[i])
+        return x, kv, aux
+
     if cfg.scan_layers and not want_cache and cfg.family == "lm":
         x, aux_acc = _forward_scanned(params, cfg, x, positions, segment_ids)
     else:
+        run = _remat(cfg, run_layer)
         for i, (lp, (s, f)) in enumerate(zip(params.layers, layer_plan(cfg))):
-            x, kv, aux = layer_forward(lp, x, cfg, i, s, f, mode="full",
-                                       positions=positions, segment_ids=segment_ids)
-            if enc_kv is not None:
-                x = _cross_block(params, cfg, i, x, enc_kv[i])
+            x, kv, aux = run(x, i, lp, s, f)
             for k, v in aux.items():
                 aux_acc[k] = aux_acc.get(k, 0.0) + v / cfg.n_layers
             if want_cache:
@@ -417,14 +495,42 @@ def _forward_scanned(params: LM, cfg: ModelConfig, x, positions, segment_ids):
     averaged over periods."""
     p = plan_period(cfg)
     plan = layer_plan(cfg)
-    bal = []
-    for k in range(cfg.n_layers // p):
+
+    def period(x, k):
         for j in range(p):
             s, f = plan[j]
             x, _, aux = layer_forward(params.layers[k * p + j], x, cfg, j, s, f, mode="full",
                                       positions=positions, segment_ids=segment_ids)
-        bal.append(aux.get("moe_balance_loss", torch.zeros((), device=x.device)))
+        return x, aux.get("moe_balance_loss", torch.zeros((), device=x.device))
+
+    run = _remat(cfg, period)  # the reference remats the scanned body
+    bal = []
+    for k in range(cfg.n_layers // p):
+        x, b = run(x, k)
+        bal.append(b)
     return x, {"moe_balance_loss": torch.stack(bal).mean()}
+
+
+#: the ops whose outputs ``remat_policy="dots"`` keeps (``checkpoint_dots``)
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` as the reference's ``jax.checkpoint(fn, policy=_remat_policy(cfg))``
+    where ``cfg.remat`` is set and autograd records (remat changes what the
+    backward pass keeps, never a value): "nothing" keeps only ``fn``'s
+    inputs, "dots" also the matmul outputs."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 def _kv_len(cfg: ModelConfig, layer: int, seq_len: int, cache_len: int) -> int:
@@ -562,3 +668,22 @@ def prefill(
     logits, cache, _ = forward(params, cfg, batch, want_cache=True, cache_len=cache_len,
                                last_only=last_only)
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(params: LM, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+    """The reference's training loss: masked cross entropy over
+    ``batch["labels"]`` and ``batch["loss_mask"]`` with z-loss 1e-4, plus
+    0.01 x ``moe_balance_loss`` for an MoE model.  Returns (loss, metrics)."""
+    logits, _, aux = forward(params, cfg, batch)
+    loss, metrics = cross_entropy(logits, batch["labels"], batch.get("loss_mask"), z_loss=1e-4)
+    if "moe_balance_loss" in aux:
+        loss = loss + 0.01 * aux["moe_balance_loss"]
+        metrics["moe_balance_loss"] = aux["moe_balance_loss"]
+    metrics["loss"] = loss
+    return loss, metrics

@@ -784,3 +784,69 @@ def test_encode_message_on_card_equals_host(cuda_device):
         assert got.is_cuda and bytes(got.cpu().numpy()) == w
         host = encode_message(len(w), plan, decode_message(wire_to_u8(w, "cpu"), plan))
         assert torch.equal(got.cpu(), host)
+
+
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+
+def _train_steps(device, wires, cfg, batch, seq, lr_fn):
+    from repro_torch.data.pipeline import decode_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(device)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3), lr_fn)
+    losses, launches = [], []
+    for w in wires:
+        before = pu.LAUNCHES["unpack_gather"]
+        b = decode_batch(w, batch, seq, device=device)
+        launches.append(pu.LAUNCHES["unpack_gather"] - before)
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+    return np.array(losses), dict(params.named_parameters()), launches
+
+
+def test_train_steps_on_card_equal_host(cuda_device):
+    """The float32 smoke model's train steps (pipeline decode, loss, grads
+    in 2 microbatches, AdamW) on the card and on the host, from the same
+    parameters and wires: losses ``rtol=1e-5``, parameters ``rtol=1e-4`` and
+    5 % of the steps' summed rates (AdamW's normalized step passes a grad
+    element's relative float32 noise on whole).  Each step's decode is two
+    B3 launches on the card."""
+    import dataclasses
+
+    from repro_torch.data import HGumBatchPipeline
+    from repro_torch.optim import linear_warmup_cosine
+
+    cfg = dataclasses.replace(smoke_config(get_config("yi-6b")), microbatch=2)
+    pipe = HGumBatchPipeline(vocab=cfg.vocab, batch=4, seq=32, seed=1, device="cpu")
+    wires = [pipe.host_make_wire() for _ in range(3)]
+    lr_fn = linear_warmup_cosine(1e-3, 1, 3)
+    card = _train_steps(cuda_device, wires, cfg, 4, 32, lr_fn)
+    host = _train_steps("cpu", wires, cfg, 4, 32, lr_fn)
+    assert card[2] == [2, 2, 2] and host[2] == [0, 0, 0]
+    np.testing.assert_allclose(card[0], host[0], rtol=1e-5)
+    atol = 0.05 * sum(float(lr_fn(i)) for i in range(3))
+    for n, p in host[1].items():
+        torch.testing.assert_close(card[1][n].detach().cpu(), p.detach(), rtol=1e-4, atol=atol)
+
+
+def test_train_entry_points_default_to_cuda():
+    """Without a card, the training entry points raise instead of taking
+    the host (runs on the CPU; on a card the default device is valid)."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is valid here")
+    from repro_torch.data import HGumBatchPipeline
+    from repro_torch.data.pipeline import decode_batch
+    from repro_torch.device import NoCudaError
+    from repro_torch.launch import train
+
+    for call in (lambda: train.train_loop("xlstm-125m", steps=1, batch=2, seq=8),
+                 lambda: train.main(["--arch", "yi-6b", "--smoke", "--steps", "1"]),
+                 lambda: HGumBatchPipeline(vocab=64, batch=2, seq=8),
+                 lambda: decode_batch(b"\0" * 40, 1, 4)):
+        with pytest.raises(NoCudaError, match="device='cpu'"):
+            call()

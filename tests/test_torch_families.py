@@ -205,11 +205,21 @@ def test_plan_period_every_arch(arch):
 
 
 def test_segment_ids_name_the_training_item(models):
-    _, _, cfg, tparams = models
-    batch = {"tokens": torch.ones((1, 4), dtype=torch.int32),
-             "segment_ids": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        forward(tparams, cfg, batch)
+    """Packed rows (the training item's segment ids: two documents and an
+    EOD token of segment 0 per row, positions restarting per segment):
+    logits and ``aux`` equal the reference's ``forward`` with
+    ``segment_ids``; the SSM mixers ignore them, as in the reference."""
+    jcfg, jparams, cfg, tparams = models
+    toks = _tokens(cfg, (2, 16), 3)
+    seg = np.array([[1] * 6 + [0] + [2] * 9, [1] * 11 + [0] + [2] * 4], np.int32)
+    pos = np.array([list(range(6)) + [0] + list(range(9)),
+                    list(range(11)) + [0] + list(range(4))], np.int32)
+    batch = {"tokens": toks, "segment_ids": seg, "positions": pos}
+    jl, _, jaux = j_forward(jparams, jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        tl, _, taux = forward(tparams, cfg, {k: torch.from_numpy(v) for k, v in batch.items()})
+    _close(tl, jl)
+    _close_aux(taux, jaux)
 
 
 def test_slot_cache_has_prefills_shapes(models):

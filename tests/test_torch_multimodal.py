@@ -339,11 +339,25 @@ def test_cache_zeros_has_prefill_shapes(models):
 
 
 def test_segment_ids_still_raise(vlm):
-    _, _, cfg, tparams = vlm
-    batch = _both(_batch(cfg, 1, 4, 7))[1]
-    batch["segment_ids"] = torch.ones((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 13"):
-        forward(tparams, cfg, batch)
+    """Packed text behind the vision prefix: segment ids (two documents and
+    an EOD token of segment 0 per row) and positions restarting per
+    segment; the prefix joins each row's first segment.  Logits equal the
+    reference's ``forward`` with ``segment_ids`` (the name is the test's
+    from before packed sequences were ported, when they raised)."""
+    jcfg, jparams, cfg, tparams = vlm
+    batch = _batch(cfg, 2, 12, 7)
+    batch["segment_ids"] = np.array([[1] * 5 + [0] + [2] * 6, [1] * 8 + [0] + [2] * 3],
+                                    np.int32)
+    batch["positions"] = np.array([list(range(5)) + [0] + list(range(6)),
+                                   list(range(8)) + [0] + list(range(3))], np.int32)
+    jb, tb = _both(batch)
+    with torch.no_grad():
+        got, _, _ = forward(tparams, cfg, tb)
+    want, _, _ = _jit(j_forward, jcfg)(jparams, jb)
+    _close(got, want)
+    unpacked, _, _ = _jit(j_forward, jcfg)(jparams, {k: v for k, v in jb.items()
+                                                     if k != "segment_ids"})
+    assert np.abs(np.asarray(unpacked) - np.asarray(want)).max() > 1e-3
 
 
 @pytest.mark.parametrize("arch", ARCHS)

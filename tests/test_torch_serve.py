@@ -307,15 +307,18 @@ new = {{"repro_torch.fabric.frames", "repro_torch.fabric.router",
         "repro_torch.analysis.schema_passes", "repro_torch.analysis.config_passes",
         "repro_torch.analysis.fabric_passes", "repro_torch.analysis.targets",
         "repro_torch.analysis.__main__", "repro_torch.models.ssm",
-        "repro_torch.models.ffn", "repro_torch.models.model"}}
+        "repro_torch.models.ffn", "repro_torch.models.model", "repro_torch.optim.adamw",
+        "repro_torch.optim.microbatch", "repro_torch.data.pipeline",
+        "repro_torch.data.prefetch", "repro_torch.checkpoint.store",
+        "repro_torch.launch.train"}}
 assert new <= set(mods), new - set(mods)
 """
 
 
 def test_import_isolation():
     """Every module of the port (the fabric, its frame kernels, the stream
-    plane, the copied stream codec, analysis and obs modules and the model
-    families' MoE and SSM blocks included) and
+    plane, the copied stream codec, analysis and obs modules, the model
+    families' MoE and SSM blocks and the training side included) and
     every import of chip_smoke.py loads without JAX or the JAX package."""
     code = _ISOLATION.format(src=str(ROOT / "src"), smoke=str(ROOT / "chip_smoke.py"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
