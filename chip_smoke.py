@@ -174,6 +174,27 @@ What it does, in order (any failed check raises and the exit code is 1):
    ``[train]`` lines name the card and its power limit, with step ms (CUDA
    events), tokens/s, the ms inside ``decode_batch`` and ``adamw_update``,
    peak memory, and B3 at a step's two calls against its byte bound.
+15. Multi-device drivers (last, after phase 14), on one card where a mesh
+   axis is a tensor axis.  (a) The framed ring channel
+   ``runtime.make_framed_sender`` over an 8-rank ring at
+   ``benchmarks/bench_fabric.py``'s sizes (4096-byte payloads,
+   ``frame_phits`` 16) and at 8 x 16 MiB: one B5 join launch a send,
+   delivered payloads, nbytes and ``ok`` equal to the plain route on the
+   host and (small size) to the ``Fabric``'s one-hop delivery, each
+   recorded B5 call == plain.  (b) ``cross_pod_mean_int8`` at full width:
+   the float32 grads of yi-6b's 8 layers for two 8 x 2048 batches as the
+   two members of ``pod = 2``; per leaf the mean within one quantisation
+   step of the float32 mean and the residual at most one step; the smoke
+   model's result equal on card and host.  (c) ``gpipe_forward``: yi-6b's
+   8 layers in 4 stages of 2, 8 microbatches of 1 x 2048 tokens, 11 ticks,
+   bit for bit the stages applied to each microbatch in turn and within
+   1 % (norm) of the whole-batch forward.  (d) ``launch.dryrun.lower_cell``
+   on the (2, 2, 2) debug mesh for yi-6b at full width and 8 layers: two
+   train steps, a prefill and four decode steps bit for bit the unsharded
+   steps' from the same state.  (e) ``python -m repro_torch.launch.dryrun
+   --arch yi-6b --mesh both`` (run beside (a)-(d)): every supported cell
+   ``ok``, and the dry run's device-memory constant equal to what the
+   card reports.  ``[multi]`` lines name the card and its power limit.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -201,6 +222,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     FrameWriter,
     Schema,
@@ -222,14 +244,34 @@ from repro_torch.fabric import Fabric, FabricConfig, FaultPlan, frame_stream  # 
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import frame_pack as fp  # noqa: E402
 from repro_torch.kernels import phit_unpack as pu  # noqa: E402
+from repro_torch.launch import costanalysis  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
-from repro_torch.launch.steps import cached_serve_steps, make_train_step  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    cached_serve_steps,
+    make_prefill_step,
+    make_serve_step,
+    make_train_step,
+)
+from repro_torch.launch.train import deterministic  # noqa: E402
 from repro_torch.models import init_params, loss_fn, param_count  # noqa: E402
 from repro_torch.models import forward as model_forward  # noqa: E402
 from repro_torch.models import prefill as model_prefill  # noqa: E402
 from repro_torch.obs.metrics import window_stats  # noqa: E402
+from repro_torch.models.model import layer_forward  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, linear_warmup_cosine  # noqa: E402
+from repro_torch.optim import microbatched_grads  # noqa: E402
+from repro_torch.runtime import (  # noqa: E402
+    cross_pod_mean_int8,
+    gpipe_forward,
+    init_error,
+    make_framed_sender,
+    split_stages,
+    stack_stage_params,
+)
+from repro_torch.runtime.sharding import leaf_paths, tree_map_with_path  # noqa: E402
 from repro_torch.runtime.scheduler import extra_inputs  # noqa: E402
 from repro_torch import stream as stream_pkg  # noqa: E402
 from repro_torch.stream import plane as stream_plane  # noqa: E402
@@ -324,6 +366,18 @@ SMOKE_TRAIN = dict(steps=4, batch=4, seq=64, lr=1e-3, warmup=1)
 DESCENT_LR, DESCENT_STEPS = 1e-6, 2
 RESTART_ARGS = ["--arch", "xlstm-125m", "--smoke", "--steps", "16", "--batch", "2",
                 "--seq", "32", "--ckpt-every", "4"]
+# multi-device drivers (phase 15): the framed ring channel at
+# benchmarks/bench_fabric.py's sizes (8 ranks, 4096-byte payloads, 16-phit
+# frames) and at 8 x 16 MiB; GPipe over yi-6b's 8 layers in 4 stages of 2,
+# 8 microbatches of 1 x 2048 tokens; the sharded steps on the (2, 2, 2)
+# debug mesh; the dry run of yi-6b on both production meshes
+RING_RANKS, RING_BYTES, RING_PHITS, RING_LARGE_BYTES = 8, 4096, 16, 16 << 20
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 8, 2048
+SHARD_MESH = ((2, 2, 2), ("pod", "data", "model"))
+SHARD_DECODE_STEPS = 4
+#: norm-wise bound of the pipelined forward against the whole-batch one:
+#: bf16 activations through 8 layers whose GEMMs tile another M
+PIPE_WHOLE_RTOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -2230,6 +2284,340 @@ def phase_train(dev, card: str) -> list:
     return [res["launches"]]
 
 
+
+# ---------------------------------------------------------------------------
+# phase 15: the multi-device drivers on one card
+# ---------------------------------------------------------------------------
+
+
+def ring_send(send, payload: torch.Tensor, nbytes: torch.Tensor):
+    """One framed send with the launch counts set to 0 before it; returns
+    the delivery, the launches and the recorded B5 calls."""
+    reset_launches()
+    with fp.recording() as rec:
+        out = send(payload, nbytes)
+        torch.cuda.synchronize()
+    return out, read_launches(), rec
+
+
+def ring_channel(dev, card: str):
+    """Phase 15 (a): the framed ring channel; returns the launches of its
+    sends and the largest |kernel - plain| at their B5 calls."""
+    mesh = Mesh((RING_RANKS,), ("ring",))
+    send = make_framed_sender(mesh, "ring", frame_phits=RING_PHITS)
+    launches, err = [], 0
+    for nbytes_each in (RING_BYTES, RING_LARGE_BYTES):
+        rng = np.random.default_rng(nbytes_each)
+        host = torch.from_numpy(rng.integers(0, 256, (RING_RANKS, nbytes_each), dtype=np.uint8)
+                                .view(np.int32))
+        nbytes = torch.full((RING_RANKS,), nbytes_each, dtype=torch.int64)
+        (p, nb, ok), counts, rec = ring_send(send, host.to(dev), nbytes.to(dev))
+        launches.append(counts)
+        check(counts["pack_frames_batch"] == 1 and sum(counts.values()) == 1,
+              f"framed send: {counts}, not one B5 join")
+        for name, args in rec:
+            got, want = fp.pack_frames_batch(*args), fp.pack_frames_batch_plain(*args)
+            err = max(err, max_abs_err(got, want))
+            check(name == "pack_frames_batch" and same(got, want), "B5 != plain at a send")
+        hp, hnb, hok = send(host, nbytes)
+        check(all(torch.equal(a.cpu(), b) for a, b in ((p, hp), (nb, hnb), (ok, hok))),
+              "framed send: card != host")
+        words = nbytes_each // 4
+        check(bool(ok.all()) and torch.equal(p[:, :words].cpu(), torch.roll(host, 1, 0)),
+              "framed send: member i did not receive member i - 1's payload")
+        if nbytes_each == RING_BYTES:  # bench_fabric.py's check_bit_exact_vs_single_hop
+            fab = Fabric(n_ranks=RING_RANKS, config=FabricConfig(frame_phits=RING_PHITS),
+                         device=dev)
+            boxes = [fab.mailbox(r) for r in range(RING_RANKS)]
+            wires = [host[r].numpy().tobytes() for r in range(RING_RANKS)]
+            for r in range(RING_RANKS):
+                boxes[r].send((r + 1) % RING_RANKS, wires[r])
+            fab.exchange()
+            for r in range(RING_RANKS):
+                got = boxes[r].recv()
+                check(len(got) == 1 and got[0].ok and got[0].src == (r - 1) % RING_RANKS
+                      and got[0].wire == p[r, :words].cpu().numpy().tobytes(),
+                      f"fabric one-hop delivery to rank {r} != the framed channel's")
+        ms = time_ms(lambda: send(p, nb), reps=20 if nbytes_each == RING_BYTES else 5)
+        frame_bytes = 2 * p.numel() * 4  # the payloads read, the frames written: a floor
+        log(f"[multi] {card} | framed ring channel, {RING_RANKS} ranks x {nbytes_each} B, "
+            f"frame_phits {RING_PHITS}: {ms:.4f} ms a send (CUDA events), "
+            f"{counts['pack_frames_batch']} B5 launch a send, card == host"
+            + (" == Fabric one-hop" if nbytes_each == RING_BYTES else "")
+            + f"; payload bytes x 2 at 3.35 TB/s {frame_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        del p, nb, ok, rec, host
+        torch.cuda.empty_cache()
+    return launches, err
+
+
+def pod_grads(params, cfg, batches) -> dict:
+    """``{name: (len(batches), ...)}`` float32: each batch's grads of the
+    model's loss in one row."""
+    stacked = {n: torch.empty((len(batches),) + tuple(p.shape), dtype=torch.float32,
+                              device=p.device) for n, p in params.named_parameters()}
+    for i, b in enumerate(batches):
+        _, grads, _ = microbatched_grads(lambda p, bb: loss_fn(p, cfg, bb), params, b,
+                                         cfg.microbatch)
+        for n, g in grads.items():
+            stacked[n][i].copy_(g)
+        del grads
+    for p in params.parameters():
+        p.requires_grad_(False)
+    return stacked
+
+
+def int8_mean(dev, card: str) -> None:
+    """Phase 15 (b): the int8 cross-pod mean at full width."""
+    # the smoke model: card == host, bit for bit
+    scfg = smoke_config(get_config(TRAIN_ARCH))
+    sp = init_params(scfg, torch.Generator().manual_seed(SEED), "cpu")
+    pipe = HGumBatchPipeline(vocab=scfg.vocab, batch=4, seq=64, seed=SEED, device="cpu")
+    sb = [decode_batch(pipe.host_make_wire(), 4, 64, device="cpu") for _ in range(2)]
+    g = pod_grads(sp, scfg, sb)
+    host = cross_pod_mean_int8(g, init_error(g))
+    card_out = cross_pod_mean_int8({n: t.to(dev) for n, t in g.items()},
+                                   {n: torch.zeros_like(t, device=dev) for n, t in g.items()})
+    for a, b in zip(host, card_out):
+        check(all(torch.equal(a[n], b[n].cpu()) for n in a), "int8 mean: smoke card != host")
+    # full width: two 8 x 2048 batches' grads are the two pods
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    n_params = param_count(params)
+    pipe = HGumBatchPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED,
+                             device=dev)
+    batches = [decode_batch(pipe.host_make_wire(), TRAIN_BATCH, TRAIN_SEQ, device=dev)
+               for _ in range(2)]
+    grads = pod_grads(params, cfg, batches)
+    del params, batches
+    err = init_error(grads)
+    torch.cuda.empty_cache()
+    ms = []
+    for _ in range(2):  # the first call warms up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        mean, e_new = cross_pod_mean_int8(grads, err)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        if len(ms) == 1:
+            del mean, e_new
+    worst_mean = worst_res = 0.0
+    for n, gg in grads.items():
+        step = float(torch.clamp(gg.abs().amax(), min=1e-12)) / 127
+        dm = float((mean[n][0] - gg.mean(dim=0)).abs().max())
+        de = float(e_new[n].abs().max())
+        check(dm <= step * (1 + 1e-6) and de <= step * (1 + 1e-6),
+              f"int8 mean {n}: |mean - fp32 mean| {dm}, |residual| {de}, step {step}")
+        worst_mean, worst_res = max(worst_mean, dm / step), max(worst_res, de / step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # grads and error read, the mean and the new error written
+    nbytes = (2 * 4 + 2 * 4 + 4 + 2 * 4) * n_params
+    log(f"[multi] {card} | cross_pod_mean_int8, pod = 2, {TRAIN_ARCH} {cfg.n_layers} layers "
+        f"({n_params} params, {len(grads)} leaves), the float32 grads of two "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} batches: {ms[-1]:.1f} ms (CUDA events), byte bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.1f} ms ({nbytes} B at 3.35 TB/s), peak {peak:.2f} "
+        f"GiB; worst |mean - fp32 mean| {worst_mean:.3f} step, worst |residual| "
+        f"{worst_res:.3f} step; smoke model card == host")
+    del grads, err, mean, e_new
+    torch.cuda.empty_cache()
+
+
+class LayerRunner(torch.nn.Module):
+    """One dense attention layer as a module, so ``functional_call`` runs it
+    on a slice of the stacked stage parameters."""
+
+    def __init__(self, layer, cfg):
+        super().__init__()
+        self.layer, self.cfg = layer, cfg
+
+    def forward(self, x):
+        return layer_forward(self.layer, x, self.cfg, 0, "attn", "dense", mode="full")[0]
+
+
+def gpipe(dev, card: str) -> None:
+    """Phase 15 (c): GPipe over yi-6b's 8 layers at full width."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    per = cfg.n_layers // PIPE_STAGES
+    stacked = stack_stage_params(split_stages(list(params.layers), PIPE_STAGES))
+    runner = LayerRunner(params.layers[0], cfg)
+
+    def stage_fn(p, x):
+        for i in range(per):
+            x = torch.func.functional_call(runner, {f"layer.{n}": t[i] for n, t in p.items()},
+                                           (x,))
+        return x
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab, (PIPE_MICRO, PIPE_SEQ), device=dev, generator=g)
+    x = params.embed[toks][:, None]  # (n_micro, 1, S, d)
+    mesh = Mesh((PIPE_STAGES,), ("stage",))
+    stages = [{n: t[s] for n, t in stacked.items()} for s in range(PIPE_STAGES)]
+    with torch.no_grad():
+        def piped():
+            return gpipe_forward(mesh, "stage", stage_fn, stacked, x)
+
+        def sequential():
+            out = []
+            for m in range(PIPE_MICRO):
+                y = x[m]
+                for s in range(PIPE_STAGES):
+                    y = stage_fn(stages[s], y)
+                out.append(y)
+            return torch.stack(out)
+
+        def whole():
+            y = x.reshape(PIPE_MICRO, PIPE_SEQ, cfg.d_model)
+            for lp in params.layers:
+                y = layer_forward(lp, y, cfg, 0, "attn", "dense", mode="full")[0]
+            return y
+
+        calls = []
+        y = gpipe_forward(mesh, "stage", lambda p, a: calls.append(1) or stage_fn(p, a),
+                          stacked, x)
+        ref = sequential()
+        check(torch.equal(y, ref), "gpipe: != the stages applied microbatch by microbatch")
+        check(len(calls) == PIPE_MICRO * PIPE_STAGES, f"gpipe: {len(calls)} stage calls")
+        w = whole()
+        rel = float((y.reshape(w.shape).float() - w.float()).norm() / w.float().norm())
+        check(rel <= PIPE_WHOLE_RTOL, f"gpipe vs whole-batch forward: relative {rel}")
+        ticks = PIPE_MICRO + PIPE_STAGES - 1
+        ms = time_ms(piped, reps=3, warmup=1)
+        whole_ms = time_ms(whole, reps=3, warmup=1)
+    log(f"[multi] {card} | gpipe_forward, {TRAIN_ARCH} {cfg.n_layers} layers in {PIPE_STAGES} "
+        f"stages of {per}, {PIPE_MICRO} microbatches of 1x{PIPE_SEQ}: {ticks} ticks, "
+        f"{ms:.1f} ms (CUDA events); == sequential bit for bit; the whole-batch forward "
+        f"{whole_ms:.1f} ms, |pipe - whole| / |whole| {rel:.2e} (bound {PIPE_WHOLE_RTOL})")
+    del params, stacked, stages, x, y, ref, w
+    torch.cuda.empty_cache()
+
+
+def sharded_steps(dev, card: str) -> None:
+    """Phase 15 (d): ``lower_cell``'s steps on the debug mesh against the
+    unsharded steps, bit for bit, from the same state."""
+    mesh = Mesh(*SHARD_MESH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS, scan_layers=True)
+    pipe = HGumBatchPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED + 1,
+                             device=dev)
+    batches = [decode_batch(pipe.host_make_wire(), TRAIN_BATCH, TRAIN_SEQ, device=dev)
+               for _ in range(2)]
+    train_shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    step, _, _ = dryrun.lower_cell(cfg, train_shape, mesh)
+    plain = make_train_step(cfg, AdamWConfig(moments=cfg.opt_moments))
+    runs = []
+    t0 = time.perf_counter()
+    with deterministic():
+        for fn in (step, plain):
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+            opt = adamw_init(params)
+            losses = []
+            for b in batches:
+                params, opt, m = fn(params, opt, b)
+                losses.append(m["loss"].clone())
+            runs.append((losses, {n: p.detach().clone() for n, p in params.named_parameters()}))
+            del params, opt
+            torch.cuda.empty_cache()
+    (l1, p1), (l2, p2) = runs
+    check(all(torch.equal(a, b) for a, b in zip(l1, l2)), f"sharded train losses {l1} != {l2}")
+    check(all(torch.equal(p1[n], p2[n]) for n in p1), "sharded train: parameters differ")
+    kinds = sorted({k for k, _, _ in step.constrainer.records})
+    train_s = time.perf_counter() - t0
+    del runs, p1, p2
+    # prefill, then decode steps from its cache
+    scfg = dataclasses.replace(cfg, scan_layers=False)
+    params = init_params(scfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    pstep, _, _ = dryrun.lower_cell(scfg, ShapeConfig("prefill", TRAIN_SEQ, TRAIN_BATCH,
+                                                             "prefill"), mesh)
+    prompt = {"tokens": batches[0]["tokens"]}
+    (t1, c1), (t2, c2) = pstep(params, prompt), make_prefill_step(scfg)(params, prompt)
+    check(torch.equal(t1, t2), "sharded prefill: next tokens differ")
+    for (n, a), (_, b) in zip(leaf_paths(c1), leaf_paths(c2)):
+        check(torch.equal(a, b), f"sharded prefill: cache {n} differs")
+    half = {"tokens": batches[1]["tokens"][:, :TRAIN_SEQ // 2]}
+    _, cache = make_prefill_step(scfg, cache_len=TRAIN_SEQ)(params, half)
+    dstep, _, _ = dryrun.lower_cell(scfg, ShapeConfig("decode", TRAIN_SEQ, TRAIN_BATCH,
+                                                             "decode"), mesh)
+    ca_, cb_ = cache, tree_map_with_path(lambda _, t: t.clone(), cache)
+    ta = tb = batches[1]["tokens"][:, TRAIN_SEQ // 2: TRAIN_SEQ // 2 + 1]
+    toks = []
+    for _ in range(SHARD_DECODE_STEPS):
+        ta, ca_ = dstep(params, ca_, ta)
+        tb, cb_ = make_serve_step(scfg)(params, cb_, tb)
+        check(torch.equal(ta, tb), "sharded decode: next tokens differ")
+        toks.append(ta[:, 0].tolist()[:2])
+    for (n, a), (_, b) in zip(leaf_paths(ca_), leaf_paths(cb_)):
+        check(torch.equal(a, b), f"sharded decode: cache {n} differs")
+    log(f"[multi] {card} | lower_cell on the {SHARD_MESH[0]} {SHARD_MESH[1]} mesh, "
+        f"{TRAIN_ARCH} {cfg.n_layers} layers full width: 2 train steps of "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} (losses {[round(float(x), 4) for x in l1]}, "
+        f"deterministic algorithms, {train_s:.1f} s for both runs), a prefill of "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} and {SHARD_DECODE_STEPS} decode steps bit for bit the "
+        f"unsharded steps'; constrained kinds {kinds}; first tokens {toks}")
+    del params, c1, c2, ca_, cb_, cache, batches
+    torch.cuda.empty_cache()
+
+
+def start_dryrun(out_dir: str) -> subprocess.Popen:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                             TRAIN_ARCH, "--mesh", "both", "--out", out_dir],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env, cwd=ROOT)
+
+
+def finish_dryrun(proc: subprocess.Popen, out_dir: str, card: str) -> None:
+    """Phase 15 (e): every supported yi-6b cell ``ok``."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    check(proc.returncode == 0, f"dry run exited {proc.returncode}: {err[-2000:]}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(costanalysis.HBM_BYTES == total,
+          f"the dry run's HBM_BYTES {costanalysis.HBM_BYTES} != the card's {total}")
+    cells = [json.loads(f.read_text()) for f in sorted(Path(out_dir).glob("*.json"))]
+    check(len(cells) == 2 * len(dryrun.SHAPES), f"dry run wrote {len(cells)} cells")
+    for c in cells:
+        name = f"{c['arch']} {c['shape']} {c['mesh']}"
+        if c["status"] == "skipped":
+            check(c["shape"] == "long_500k", f"dry run skipped {name}: {c['reason']}")
+            log(f"[multi] dry run {name}: skipped ({c['reason']})")
+            continue
+        check(c["status"] == "ok", f"dry run {name}: {c['status']} {c.get('error')}")
+        rf, mem = c["roofline"], c["memory"]
+        log(f"[multi] {card} | dry run {name} ({c['n_chips']} ranks): "
+            f"{mem['per_device_bytes'] / 2**30:.2f} GiB a device (arguments + outputs - "
+            f"aliases), fits {mem['fits']}; t_compute {rf['t_compute'] * 1e3:.3f} ms, "
+            f"t_memory {rf['t_memory'] * 1e3:.3f} ms, t_collective "
+            f"{rf['t_collective'] * 1e3:.3f} ms (layout), dominant {rf['dominant']}; "
+            f"trace {c['trace_s']} s")
+
+
+def phase_multi(dev, card: str):
+    """Phase 15: the multi-device drivers (see the module docstring)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        proc = start_dryrun(out_dir)  # host work, beside the card's checks
+        try:
+            launches, ring_err = ring_channel(dev, card)
+            int8_mean(dev, card)
+            gpipe(dev, card)
+            sharded_steps(dev, card)
+        except BaseException:
+            proc.kill()
+            proc.communicate()
+            raise
+        t1 = time.perf_counter()
+        finish_dryrun(proc, out_dir, card)
+    log(f"[multi] phase 15: {time.perf_counter() - t0:.1f} s (the dry run waited "
+        f"{time.perf_counter() - t1:.1f} s after the card's checks)")
+    return launches, ring_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -2276,6 +2664,10 @@ def main() -> int:
     path_launches += phase_families(dev, card)
     path_launches += phase_multimodal(dev, card)
     path_launches += phase_train(dev, card)
+    multi_launches, ring_err = phase_multi(dev, card)
+    path_launches += multi_launches
+    rows["pack_frames_batch"]["main"]["max_abs_err"] = max(
+        rows["pack_frames_batch"]["main"]["max_abs_err"], ring_err)
 
     records = []
     for name, (source, replaces, _, _, _) in KERNELS.items():

@@ -166,19 +166,20 @@ def verify_frames(frames: torch.Tensor) -> torch.Tensor:
 def unframe_stream(
     frames: torch.Tensor, verify: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Frames -> (payload (W,) int32 lanes, nbytes, ok).  Zeroed past the
-    true end."""
-    F = frames.shape[0]
-    data = frames[:, HDR_WORDS:]
-    bytes_in = lanes_to_i64(frames[:, HDR_SIZE])
-    ok = torch.tensor(True, device=frames.device)
+    """Frames (F, width) -> (payload (W,) int32 lanes, nbytes, ok).  Zeroed
+    past the true end.  Leading dims are streams unframed side by side:
+    (..., F, width) -> (payload (..., W), nbytes (...), ok (...))."""
+    F = frames.shape[-2]
+    data = frames[..., HDR_WORDS:]
+    bytes_in = lanes_to_i64(frames[..., HDR_SIZE])
+    ok = torch.ones(frames.shape[:-2], dtype=torch.bool, device=frames.device)
     if verify:
-        ok = verify_frames(frames).all()
+        ok = verify_frames(frames).all(dim=-1)
     # terminator = first frame with size 0; frames after it are ignored
-    first_end = torch.argmax((bytes_in == 0).to(torch.int32))
-    live = torch.arange(F, device=frames.device) < first_end
-    nbytes = torch.where(live, bytes_in, 0).sum()
-    payload = torch.where(live[:, None], data, 0).reshape(-1)
+    first_end = torch.argmax((bytes_in == 0).to(torch.int32), dim=-1)
+    live = torch.arange(F, device=frames.device) < first_end[..., None]
+    nbytes = torch.where(live, bytes_in, 0).sum(dim=-1)
+    payload = torch.where(live[..., None], data, 0).reshape(*frames.shape[:-2], -1)
     return payload, nbytes, ok
 
 

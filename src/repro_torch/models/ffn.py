@@ -26,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..runtime.actshard import constrain as act_constrain
 from .common import _param, act_fn, dense_init
 
 #: tokens per dispatch group (the reference's default)
@@ -177,7 +178,7 @@ def moe_ffn(
         ys.append(yf)
         bal.append(balance)
         drp.append(dropped)
-    yf = torch.cat(ys)[:T]
+    yf = act_constrain(torch.cat(ys)[:T], "tokens_flat")
     return yf.reshape(B, S, d), {
         "moe_balance_loss": torch.stack(bal).mean(),
         "moe_dropped": torch.stack(drp).mean(),

@@ -52,6 +52,7 @@ from torch.utils.checkpoint import (
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, default_device
+from ..runtime.actshard import constrain as act_constrain
 from . import attention as attn_mod
 from . import ffn as ffn_mod
 from . import ssm as ssm_mod
@@ -191,11 +192,12 @@ def init_layer(cfg: ModelConfig, seq_kind: str, ffn_kind: str, dtype,
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> LM:
     """Random parameters on ``device`` (default: the CUDA card, raising
-    without one).  ``generator`` must live on that device; by default a
+    without one).  ``generator`` must live on that device (on ``meta``, a
+    CPU generator: shapes and dtypes only, nothing allocated); by default a
     fresh one seeded with 0."""
     dev = default_device(device)
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+        generator = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(0)
     with torch.no_grad():
         return LM(cfg, generator, dev)
 
@@ -355,7 +357,7 @@ def _embed_tokens(params: LM, cfg: ModelConfig, tokens: torch.Tensor) -> torch.T
 
 def _unembed(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     head = params.lm_head if params.lm_head is not None else params.embed.T
-    logits = x @ head
+    logits = act_constrain(x @ head, "logits")
     if cfg.padded_vocab != cfg.vocab:  # mask the pad rows (see padded_vocab)
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
         logits = torch.where(pad, torch.tensor(-1e30, dtype=logits.dtype,
@@ -454,12 +456,14 @@ def forward(
         enc_kv = [attn_mod.cross_kv(cp.attn, enc_out, cfg) for cp in params.cross]
     aux_acc: Dict[str, torch.Tensor] = {}
     caches: List[Dict] = []
+    x = act_constrain(x, "residual")
+
     def run_layer(x, i, lp, s, f):
         x, kv, aux = layer_forward(lp, x, cfg, i, s, f, mode="full",
                                    positions=positions, segment_ids=segment_ids)
         if enc_kv is not None:
             x = _cross_block(params, cfg, i, x, enc_kv[i])
-        return x, kv, aux
+        return act_constrain(x, "residual"), kv, aux
 
     if cfg.scan_layers and not want_cache and cfg.family == "lm":
         x, aux_acc = _forward_scanned(params, cfg, x, positions, segment_ids)
@@ -501,6 +505,7 @@ def _forward_scanned(params: LM, cfg: ModelConfig, x, positions, segment_ids):
             s, f = plan[j]
             x, _, aux = layer_forward(params.layers[k * p + j], x, cfg, j, s, f, mode="full",
                                       positions=positions, segment_ids=segment_ids)
+            x = act_constrain(x, "residual")
         return x, aux.get("moe_balance_loss", torch.zeros((), device=x.device))
 
     run = _remat(cfg, period)  # the reference remats the scanned body

@@ -850,3 +850,53 @@ def test_train_entry_points_default_to_cuda():
                  lambda: decode_batch(b"\0" * 40, 1, 4)):
         with pytest.raises(NoCudaError, match="device='cpu'"):
             call()
+
+
+def test_framed_sender_on_card_is_one_b5_join(cuda_device):
+    """The framed ring channel on the card: one B5 join launch a send, that
+    launch == the plain join, and the delivery == the host's."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.runtime import make_framed_sender
+
+    rng = np.random.default_rng(5)
+    payload = torch.from_numpy(rng.integers(0, 2**32, (8, 1024), dtype=np.uint32).view(np.int32))
+    nbytes = torch.from_numpy(rng.integers(0, 4097, 8))
+    send = make_framed_sender(Mesh((8,), ("ring",)), "ring", frame_phits=16)
+    before = dict(fp.LAUNCHES)
+    with fp.recording() as rec:
+        card = send(payload.to(cuda_device), nbytes.to(cuda_device))
+        torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in fp.LAUNCHES.items() if v != before[k]} == \
+        {"pack_frames_batch": 1}
+    (name, args), = rec
+    assert torch.equal(fp.pack_frames_batch(*args), fp.pack_frames_batch_plain(*args))
+    for a, b in zip(card, send(payload, nbytes)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_cross_pod_mean_int8_on_card_equals_host(cuda_device):
+    """A smoke model's float32 grads of two batches as the two pods: the
+    int8 mean and the new error bit for bit on card and host."""
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import microbatched_grads
+    from repro_torch.runtime import cross_pod_mean_int8, init_error
+
+    cfg = smoke_config(get_config("yi-6b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(9)
+    grads = []
+    for _ in range(2):
+        tok = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 32)).astype(np.int32))
+        batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1),
+                 "loss_mask": torch.ones((2, 32))}
+        grads.append(microbatched_grads(lambda p, b: loss_fn(p, cfg, b), params, batch, 1)[1])
+    g = {n: torch.stack([grads[0][n], grads[1][n]]).float() for n in grads[0]}
+    e = {n: torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)) * 1e-4
+         for n, t in g.items()}
+    host = cross_pod_mean_int8(g, e)
+    card = cross_pod_mean_int8({n: t.to(cuda_device) for n, t in g.items()},
+                               {n: t.to(cuda_device) for n, t in e.items()})
+    for h, c in zip(host, card):
+        for n in h:
+            assert torch.equal(h[n], c[n].cpu()), n
+    assert set(init_error(params)) == set(g)

@@ -310,7 +310,11 @@ new = {{"repro_torch.fabric.frames", "repro_torch.fabric.router",
         "repro_torch.models.ffn", "repro_torch.models.model", "repro_torch.optim.adamw",
         "repro_torch.optim.microbatch", "repro_torch.data.pipeline",
         "repro_torch.data.prefetch", "repro_torch.checkpoint.store",
-        "repro_torch.launch.train"}}
+        "repro_torch.launch.train", "repro_torch.runtime.sharding",
+        "repro_torch.runtime.actshard", "repro_torch.runtime.pipeline",
+        "repro_torch.runtime.channels", "repro_torch.runtime.compress",
+        "repro_torch.launch.mesh", "repro_torch.launch.costanalysis",
+        "repro_torch.launch.dryrun"}}
 assert new <= set(mods), new - set(mods)
 """
 
@@ -318,8 +322,9 @@ assert new <= set(mods), new - set(mods)
 def test_import_isolation():
     """Every module of the port (the fabric, its frame kernels, the stream
     plane, the copied stream codec, analysis and obs modules, the model
-    families' MoE and SSM blocks and the training side included) and
-    every import of chip_smoke.py loads without JAX or the JAX package."""
+    families' MoE and SSM blocks, the training side and the multi-device
+    drivers included) and every import of chip_smoke.py loads without JAX
+    or the JAX package."""
     code = _ISOLATION.format(src=str(ROOT / "src"), smoke=str(ROOT / "chip_smoke.py"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -482,10 +482,33 @@ def test_make_train_step_matches_reference():
 
 
 def test_make_train_step_refuses_mesh_arguments():
-    _, cfg = _configs("yi-6b")
-    for kw in (dict(grad_shardings={}), dict(micro_sharding_fn=lambda b: b)):
-        with pytest.raises(NotImplementedError, match="queue A item 14"):
-            make_train_step(cfg, toptim.AdamWConfig(), **kw)
+    """The mesh arguments are applied as the reference applies them: the
+    grads go through ``grad_shardings``, which refuse a layout that does
+    not divide a grad, and the (n_micro, b / n_micro, ...) microbatches
+    through ``micro_sharding_fn``; a layout that fits changes no value."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.runtime.sharding import NamedSharding, P, param_shardings
+
+    _, _, cfg, params = _models("yi-6b", n_layers=2, microbatch=2)
+    batch = _both(_packed_batch(cfg, seed=13, batch=4))[1]
+    bad = {n: NamedSharding(Mesh((3,), ("data",)), P("data"))
+           for n, _ in params.named_parameters()}
+    with pytest.raises(ValueError, match="divisible"):
+        make_train_step(cfg, toptim.AdamWConfig(), grad_shardings=bad)(
+            params, toptim.adamw_init(params), batch)
+    seen = []
+    step = make_train_step(
+        cfg, toptim.AdamWConfig(),
+        grad_shardings=param_shardings(params, cfg, Mesh((2, 2), ("data", "model"))),
+        micro_sharding_fn=lambda b: seen.append({k: tuple(v.shape) for k, v in b.items()}) or b)
+    _, _, m = step(params, toptim.adamw_init(params), batch)
+    _, _, cfg2, params2 = _models("yi-6b", n_layers=2, microbatch=2)
+    _, _, m2 = make_train_step(cfg2, toptim.AdamWConfig())(
+        params2, toptim.adamw_init(params2), batch)
+    assert seen == [{k: (2, 2, S) for k in batch}]
+    assert torch.equal(m["loss"], m2["loss"])
+    for (n, p), p2 in zip(params.named_parameters(), params2.parameters()):
+        assert torch.equal(p, p2), n
 
 
 # ---------------------------------------------------------------------------
