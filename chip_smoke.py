@@ -121,8 +121,11 @@ What it does, in order (any failed check raises and the exit code is 1):
    phi3.5-moe-42b-a6.6b 16 of 32 layers (16 experts top-2 on every one),
    mixtral-8x22b 4 of 56 (8 experts top-2, window 4096), gemma2-27b 8 of
    46 (4 local + 4 global, softcaps, sandwich norms), jamba-1.5-large-398b
-   5 of 72 (layers 0-3 Mamba-2, layer 4 attention, MoE on 1 and 3) and
-   xlstm-125m at its full 12.  For each: the float32 smoke model serves
+   5 of 72 (layers 0-3 Mamba-2, layer 4 attention, MoE on 1 and 3),
+   xlstm-125m at its full 12, granite-34b 24 of 88 (multi-query attention:
+   48 query heads on one K/V head, whose decode cache holds one head; the
+   2-matrix gelu MLP) and stablelm-3b at its full 32 (full multi-head
+   attention, 32 K/V heads).  For each: the float32 smoke model serves
    the same bytes on the card and the host; seeded bf16 weights from a
    generator on the card; ``serve_requests`` of 4 wires x 4 prompts of
    16-256 tokens (``pad_to=256``, ``max_new=16``, 16 slots), whose
@@ -135,7 +138,8 @@ What it does, in order (any failed check raises and the exit code is 1):
    MoE dispatch groups); xlstm also ``serve_requests_sharded`` over 3
    shards, round-robin, which must answer with the batched plane's bytes.
    Each line names the card and its power limit, with req/s, tok/s, the
-   step times and the peak memory.
+   step times, the decode step's read bound (every weight and the whole
+   slot cache read once at 3.35 TB/s) and the peak memory.
 13. Multimodal families (after phase 12): phi-3-vision-4.2b (vlm; all 32
    layers, d 3072, a prefix of 576 vision tokens of width 1024, so each
    slot holds 272 + 576 K/V rows) and whisper-tiny (encdec; 4 encoder
@@ -195,6 +199,22 @@ What it does, in order (any failed check raises and the exit code is 1):
    --arch yi-6b --mesh both`` (run beside (a)-(d)): every supported cell
    ``ok``, and the dry run's device-memory constant equal to what the
    card reports.  ``[multi]`` lines name the card and its power limit.
+16. The README's examples (last, after phase 15).  First the MoE
+   example's all-to-all (``examples/torch_moe_dispatch.py``'s ``route`` and
+   ``expert_all_to_all``) at mixtral-8x22b's full width: one MoE layer
+   (d 6144, 8 experts top-2, expert width 16384) in bf16 over 4 x 2048
+   tokens, each token's experts as (rank, expert) token-id lists over an
+   8-rank fabric, each list one routed framed List with the expert as its
+   ListLevel; delivery bit-exact, every RX verdict ok, ``frame_batch``
+   and B6 counted and each recorded call == plain.  Then the five example
+   twins (``examples/torch_*.py``) as subprocesses with their reference
+   defaults, side by side (the serve twin once more with ``--sharded
+   --streaming --metrics-json --trace-out``), then ``torch_train_lm.py
+   --full`` alone (demo-100m, 300 steps of 8 x 256; its loss must fall);
+   each must exit 0 with its own assertions holding.  ``[examples]``
+   lines name the card and its power limit, with each twin's wall
+   seconds, the all-to-all's frames and exchange ms, and demo-100m's
+   first and final loss and ms a step.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -205,8 +225,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib
+import importlib.util
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -339,8 +361,12 @@ STAMP_LARGE_WORDS, STAMP_LARGE_HEADERS = 1 << 26, 1 << 20
 SLO_SPEC = "ttft_p95_s=60,tokens_per_s_min=1,arrive_p95_steps=64,drift_free"
 # model families (phase 12): each architecture at full width, its depth cut
 # to fit one card (layers run); 4 wires of phase 3's prompts, MAX_NEW 16
+# (granite-34b: multi-query attention, 0.76 GB of bf16 weights a layer, so
+# 24 of 88 layers are about 18 GB; stablelm-3b: full multi-head attention,
+# all 32 layers)
 FAMILY_LAYERS = {"phi3.5-moe-42b-a6.6b": 16, "mixtral-8x22b": 4, "gemma2-27b": 8,
-                 "jamba-1.5-large-398b": 5, "xlstm-125m": 12}
+                 "jamba-1.5-large-398b": 5, "xlstm-125m": 12, "granite-34b": 24,
+                 "stablelm-3b": 32}
 FAMILY_REQUESTS, FAMILY_MAX_NEW = 4, 16
 # mixtral's long serve: one wire of 4 prompts of 4097-8192 tokens, padded to
 # 8192 (the window, 4096, divides it): its ring and four MoE dispatch groups
@@ -378,6 +404,25 @@ SHARD_DECODE_STEPS = 4
 #: norm-wise bound of the pipelined forward against the whole-batch one:
 #: bf16 activations through 8 layers whose GEMMs tile another M
 PIPE_WHOLE_RTOL = 1e-2
+# the README's examples (phase 16): the twins as subprocesses with their
+# reference defaults (label, script, arguments), side by side; the serve
+# twin also with every plane and both telemetry files; then the ~100M
+# train_lm --full alone.  The MoE all-to-all at mixtral-8x22b's full width:
+# one MoE layer over 4 x 2048 tokens, the expert lists over 8 ranks
+EXAMPLE_RUNS = (
+    ("quickstart", "torch_quickstart.py", []),
+    ("serve_requests", "torch_serve_requests.py", []),
+    ("serve_requests --sharded --streaming", "torch_serve_requests.py",
+     ["--sharded", "--streaming", "--metrics-json", "m.json", "--trace-out", "t.json"]),
+    ("typed_streams", "torch_typed_streams.py", []),
+    ("moe_dispatch", "torch_moe_dispatch.py", []),
+    ("train_lm", "torch_train_lm.py", []),
+)
+FULL_TRAIN_STEPS = 300
+FULL_TRAIN = ("train_lm --full", "torch_train_lm.py",
+              ["--full", "--steps", str(FULL_TRAIN_STEPS)])
+EXAMPLE_TIMEOUT_S = 600
+MOE_ARCH, MOE_TOKENS = "mixtral-8x22b", (4, 2048)
 
 
 def log(msg: str) -> None:
@@ -1809,7 +1854,8 @@ def serve_and_step_times(dev, params, cfg, wires):
     step (``SLOTS`` x ``PAD_TO`` seeded tokens, the family's placeholder)
     and the decode step timed by CUDA events.  Returns (responses,
     launches, DES calls, tokens out, seconds, peak GiB, prefill ms, decode
-    ms, K/V rows per slot)."""
+    ms, K/V rows per slot, the decode step's read bound in ms: every weight
+    and the whole slot cache read once at the card's memory rate)."""
     kw = dict(pad_to=PAD_TO, slots=SLOTS, device=dev)
     serve.serve_requests(params, cfg, wires[:1], max_new=2, **kw)  # warm-up
     resp, launches, des_calls, frame_calls, dt, peak = counted_serve(
@@ -1825,12 +1871,15 @@ def serve_and_step_times(dev, params, cfg, wires):
     pf_ms = time_ms(lambda: prefill_step(params, batch), reps=2, warmup=1)
     state = dict(zip(("tok", "cache"), prefill_step(params, batch)))
     kv_rows = next((c["k"].shape[1] for c in state["cache"]["layers"] if "k" in c), 0)
+    read = sum(p.numel() * p.element_size() for p in params.parameters())
+    read += sum(t.numel() * t.element_size() for _, t in leaf_paths(state["cache"]))
 
     def one_decode():
         state["tok"], state["cache"] = decode_step(params, state["cache"], state["tok"])
 
     dec_ms = time_ms(one_decode, reps=8, warmup=2)
-    return resp, launches, des_calls, n_out, dt, peak, pf_ms, dec_ms, kv_rows
+    return (resp, launches, des_calls, n_out, dt, peak, pf_ms, dec_ms, kv_rows,
+            read / HBM_BYTES_PER_S * 1e3)
 
 
 def family_smoke(dev, arch: str) -> None:
@@ -1863,13 +1912,14 @@ def family_run(dev, card: str, arch: str) -> list:
         f"{list(zip(cfg.layer_kinds(), cfg.ffn_kinds()))[:8]}, d{cfg.d_model}, "
         f"{n_params} params ({2 * n_params / 2**30:.2f} GiB as bf16), init "
         f"{time.perf_counter() - t0:.2f} s; smoke model: card == host bytes")
-    resp, launches, des_calls, n_out, dt, peak, pf_ms, dec_ms, _ = serve_and_step_times(
-        dev, params, cfg, wires)
+    resp, launches, des_calls, n_out, dt, peak, pf_ms, dec_ms, _, read_ms = (
+        serve_and_step_times(dev, params, cfg, wires))
     out = [launches]
     log(f"[families] {arch} | {card} | serve_requests: {len(wires)} requests, {n_out} "
         f"tokens in {dt:.3f} s: {len(wires) / dt:.3f} req/s, {n_out / dt:.1f} tok/s | "
         f"prefill step ({SLOTS}x{PAD_TO}) {pf_ms:.3f} ms, decode step ({SLOTS} slots) "
-        f"{dec_ms:.3f} ms | peak {peak:.2f} GiB | launches {launches}; kernel DES == plain "
+        f"{dec_ms:.3f} ms against a {read_ms:.3f} ms read bound (weights and slot cache "
+        f"at 3.35 TB/s) | peak {peak:.2f} GiB | launches {launches}; kernel DES == plain "
         f"at the {len(des_calls)} recorded calls")
     aux = served_batch_aux(params, cfg, wires, PAD_TO, SLOTS)
     if aux:
@@ -1969,8 +2019,8 @@ def multimodal_run(dev, card: str, arch: str) -> list:
     log(f"[mm] {arch} ({cfg.family}): {cfg.n_layers} layers, d{cfg.d_model}, {shape}, "
         f"{n_params} params ({2 * n_params / 2**30:.2f} GiB as bf16), init "
         f"{time.perf_counter() - t0:.2f} s; smoke model: card == host bytes")
-    resp, launches, des_calls, n_out, dt, peak, pf_ms, dec_ms, rows = serve_and_step_times(
-        dev, params, cfg, wires)
+    resp, launches, des_calls, n_out, dt, peak, pf_ms, dec_ms, rows, read_ms = (
+        serve_and_step_times(dev, params, cfg, wires))
     out = [launches]
     extra = (f"{cfg.vision_tokens} prefix positions" if cfg.family == "vlm" else
              f"the encoder over {cfg.enc_seq} frames")
@@ -1978,7 +2028,8 @@ def multimodal_run(dev, card: str, arch: str) -> list:
         f"{dt:.3f} s: {len(wires) / dt:.3f} req/s, {n_out / dt:.1f} tok/s | prefill step "
         f"({SLOTS}x{PAD_TO} tokens + {extra}) {pf_ms:.3f} ms, decode step ({SLOTS} slots, "
         f"{rows} K/V rows) "
-        f"{dec_ms:.3f} ms | peak {peak:.2f} GiB | launches {launches}; kernel DES == plain "
+        f"{dec_ms:.3f} ms against a {read_ms:.3f} ms read bound | peak {peak:.2f} GiB | "
+        f"launches {launches}; kernel DES == plain "
         f"at the {len(des_calls)} recorded calls")
     diff = modality_reaches_logits(params, cfg, served_batch(cfg, wires, PAD_TO, SLOTS, dev))
     log(f"[mm] {arch} | {card} | one extra prefill of the served {SLOTS}x{PAD_TO} batch "
@@ -2618,6 +2669,137 @@ def phase_multi(dev, card: str):
     return launches, ring_err
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the README's examples on the card
+# ---------------------------------------------------------------------------
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are no package)."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def moe_all_to_all(dev, card: str, md):
+    """Phase 16's MoE layer at mixtral-8x22b's full width (bf16, seeded on
+    the card) over MOE_TOKENS, then its expert lists over the twin's
+    8-rank fabric: counted, bit-exact, every RX verdict ok, and each
+    recorded ``frame_batch`` and B6 call == plain.  Returns (launches, the
+    all-to-all's result)."""
+    cfg = get_config(MOE_ARCH)
+    check((cfg.d_model, cfg.moe_experts, cfg.moe_topk, cfg.moe_dff or cfg.d_ff) == (
+        6144, 8, 2, 16384), f"{MOE_ARCH}'s MoE widths changed")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    p = md.init_moe_ffn(cfg, torch.bfloat16, g, dev)
+    x = torch.randn((*MOE_TOKENS, cfg.d_model), generator=g, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = md.route(p, x, cfg)
+    route_s = time.perf_counter() - t0
+    del p, x
+    torch.cuda.empty_cache()
+    R = min(md.MAX_RANKS, cfg.moe_experts)
+    md.expert_all_to_all(r["top"][:1024], cfg.moe_experts, R, dev)  # warm-up
+    reset_launches()
+    with pu.recording() as des_calls, fp.recording() as frame_calls:
+        out = md.expert_all_to_all(r["top"], cfg.moe_experts, R, dev)
+    launches = read_launches()
+    check(out["bit_exact"] and out["all_ok"] and out["crc_ok"],
+          f"{MOE_ARCH} all-to-all: delivery not bit-exact / a verdict not ok")
+    got = sum(len(ids) for rank in out["received"] for _, _, ids in rank)
+    check(got == r["top"].size, f"{MOE_ARCH} all-to-all delivered {got} of {r['top'].size} ids")
+    check(launches["frame_batch"] >= 1 and launches["unpack_frames_batch"] >= 1,
+          f"{MOE_ARCH} all-to-all launched no frame_batch / unpack_frames_batch")
+    hold_recorded(des_calls, frame_calls)
+    log(f"[examples] {card} | {MOE_ARCH} MoE layer (d {cfg.d_model}, {cfg.moe_experts} "
+        f"experts top-{cfg.moe_topk}, expert width {cfg.moe_dff or cfg.d_ff}, bf16) over "
+        f"{MOE_TOKENS[0]}x{MOE_TOKENS[1]} tokens in {route_s:.3f} s: capacity "
+        f"{r['capacity']}, per-expert {r['counts'].tolist()}, moe_dropped {r['dropped']:.6f}, "
+        f"moe_balance_loss {r['balance_loss']:.6f} | all-to-all over {out['n_ranks']} ranks: "
+        f"{len(out['sent'])} lists, {out['frames_routed']} frames routed, exchange "
+        f"{out['exchange_s'] * 1e3:.3f} ms, crc_ok {out['crc_ok']}, bit-exact | launches "
+        f"frame_batch {launches['frame_batch']}, B6 {launches['unpack_frames_batch']} == "
+        f"plain at {len(frame_calls)} recorded calls")
+    return launches, out
+
+
+def run_examples(runs, tmp: str) -> dict:
+    """Each (label, script, arguments) as ``python examples/<script>`` from
+    ``repro_torch`` alone, all at once, with ``TMPDIR`` in ``tmp`` (so a
+    default checkpoint directory is fresh); each must exit 0.  Returns
+    label -> (wall seconds to its exit, output)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(ROOT / "src"), TMPDIR=tmp)
+    procs = {}
+    t0 = time.perf_counter()
+    for label, script, args in runs:
+        log_path = Path(tmp) / f"{label.replace(' ', '_')}.log"
+        with open(log_path, "w") as f:
+            procs[label] = (subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / script), *args], env=env, cwd=tmp,
+                stdout=f, stderr=subprocess.STDOUT), log_path)
+    walls = {}
+    try:
+        while len(walls) < len(procs):
+            check(time.perf_counter() - t0 < EXAMPLE_TIMEOUT_S,
+                  f"examples still running after {EXAMPLE_TIMEOUT_S} s: "
+                  f"{sorted(set(procs) - set(walls))}")
+            for label, (proc, _) in procs.items():
+                if label not in walls and proc.poll() is not None:
+                    walls[label] = time.perf_counter() - t0
+            time.sleep(0.1)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {}
+    for label, (proc, log_path) in procs.items():
+        text = log_path.read_text()
+        check(proc.returncode == 0, f"examples/{label} exited {proc.returncode}:\n"
+                                    f"{text[-3000:]}")
+        out[label] = (walls[label], text)
+    return out
+
+
+def phase_examples(dev, card: str) -> list:
+    """Phase 16: the MoE all-to-all at full width, then the example twins
+    as subprocesses (see the module docstring).  Returns the all-to-all's
+    launches."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, a2a = moe_all_to_all(dev, card, load_example("torch_moe_dispatch"))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as light_tmp, tempfile.TemporaryDirectory() as full_tmp:
+        light = run_examples(EXAMPLE_RUNS, light_tmp)
+        full = run_examples([FULL_TRAIN], full_tmp)  # a checkpoint directory of its own
+    for label, (wall, text) in {**light, **full}.items():
+        last = text.strip().splitlines()[-1]
+        log(f"[examples] {label}: exit 0 in {wall:.1f} s; last: {last}")
+    check("loopback OK" in light["quickstart"][1]
+          and "'unpack_run_aligned'" in light["quickstart"][1],
+          "quickstart: the decode launched no B1 on the card")
+    check("still byte-identical" in light["serve_requests --sharded --streaming"][1],
+          "serve_requests: the streaming plane did not run")
+    check("fabric all-to-all bit-exact: True" in light["moe_dispatch"][1],
+          "moe_dispatch: the all-to-all was not bit-exact")
+    wall, text = full[FULL_TRAIN[0]]
+    m = re.search(r"first loss ([\d.]+) -> final ([\d.]+) \((\d+) steps.*?([\d.]+) ms a step",
+                  text)
+    check(m is not None and float(m[2]) < float(m[1]) and int(m[3]) == FULL_TRAIN_STEPS,
+          f"demo-100m: the loss did not fall over {FULL_TRAIN_STEPS} steps:\n{text[-2000:]}")
+    log(f"[examples] {card} | walls side by side: "
+        + ", ".join(f"{label} {w:.1f} s" for label, (w, _) in light.items())
+        + f"; {FULL_TRAIN[0]} alone {wall:.1f} s | all-to-all: {a2a['frames_routed']} frames "
+        f"routed, exchange {a2a['exchange_s'] * 1e3:.3f} ms | demo-100m (12 x 768, float32, "
+        f"{FULL_TRAIN_STEPS} steps of 8x256): first loss {m[1]}, final loss {m[2]}, "
+        f"{m[4]} ms a step (host clock; init and checkpoints included)")
+    log(f"[examples] phase 16: {time.perf_counter() - t0:.1f} s")
+    return [launches]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -2666,6 +2848,7 @@ def main() -> int:
     path_launches += phase_train(dev, card)
     multi_launches, ring_err = phase_multi(dev, card)
     path_launches += multi_launches
+    path_launches += phase_examples(dev, card)
     rows["pack_frames_batch"]["main"]["max_abs_err"] = max(
         rows["pack_frames_batch"]["main"]["max_abs_err"], ring_err)
 

@@ -25,7 +25,8 @@ their names read as a path (``layers.0.attn.wq`` ->
 optimizer state.  bfloat16 is written as its raw 2 bytes under the dtype
 name ``bfloat16`` and read back as ``<u2`` (no ``ml_dtypes`` here), which
 :func:`restore_into` views as ``torch.bfloat16``.  Saves are atomic (tmp +
-rename); ``CheckpointManager`` keeps the newest K.
+rename); ``CheckpointManager`` keeps the newest K, and a save may
+supersede earlier checkpoints (the train loop's straggler checkpoints).
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import json
 import os
 import zlib
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -263,10 +264,17 @@ class CheckpointManager:
                     continue
         return sorted(out)
 
-    def save(self, step: int, tree: PyTree, meta: Optional[Dict] = None) -> str:
+    def save(self, step: int, tree: PyTree, meta: Optional[Dict] = None,
+             supersede: Sequence[int] = ()) -> str:
+        """Write the checkpoint of ``step``, then remove the checkpoints of
+        the steps in ``supersede`` (which this one replaces), then keep the
+        newest K.  Removing before pruning keeps a replaced checkpoint from
+        taking the place of one that is kept."""
         meta = dict(meta or {})
         meta["step"] = step
         p = save_checkpoint(self.path(step), tree, meta)
+        for s in supersede:
+            self._remove(s)
         self._gc()
         return p
 
@@ -286,10 +294,12 @@ class CheckpointManager:
             return step, restore_into(template, tensors, place)
         return None, template
 
+    def _remove(self, step: int) -> None:
+        try:
+            os.remove(self.path(step))
+        except OSError:
+            pass
+
     def _gc(self) -> None:
-        steps = self.all_steps()
-        for s in steps[: -self.keep]:
-            try:
-                os.remove(self.path(s))
-            except OSError:
-                pass
+        for s in self.all_steps()[: -self.keep]:
+            self._remove(s)

@@ -9,7 +9,12 @@ tolerance:
 * ``--resume auto`` restores the newest valid checkpoint (bitwise: step,
   params, optimizer moments, data seed),
 * straggler watchdog: a step slower than 3x the trailing median forces an
-  early checkpoint at the next boundary,
+  early checkpoint after it.  An early checkpoint only bridges the gap to
+  the next scheduled one: the next save supersedes it (``CheckpointManager.
+  save(supersede=...)``), so at most one exists at a time and the
+  checkpoints a run keeps are the scheduled ones, whatever the host's load
+  made of its step times (a wall-clock straggler must not decide which
+  checkpoints survive keep-K),
 * simulated failures (``--die-at N``, exit code 17) for the restart tests.
 
 A restart is bitwise only if every step is: the loop runs with
@@ -103,6 +108,9 @@ def train_loop(
         dog = StragglerWatchdog()
         losses = []
         force_ckpt = False
+        # the step of the live straggler checkpoint, if any: a resume from
+        # one off the schedule keeps it only until the next save
+        early = [start_step] if start_step % ckpt_every else []
         try:
             for step in range(start_step, steps):
                 if die_at is not None and step == die_at:
@@ -127,7 +135,8 @@ def train_loop(
                 at_boundary = (step + 1) % ckpt_every == 0 or step == steps - 1
                 if mgr and (at_boundary or force_ckpt):
                     mgr.save(step + 1, {"params": params, "opt": opt_state},
-                             meta={"arch": arch, "loss": loss})
+                             meta={"arch": arch, "loss": loss}, supersede=early)
+                    early = [] if at_boundary else [step + 1]
                     force_ckpt = False
         finally:
             pf.close()

@@ -900,3 +900,92 @@ def test_cross_pod_mean_int8_on_card_equals_host(cuda_device):
         for n in h:
             assert torch.equal(h[n], c[n].cpu()), n
     assert set(init_error(params)) == set(g)
+
+
+# ---------------------------------------------------------------------------
+# multi-query (granite-34b) and full multi-head (stablelm-3b) attention; the
+# MoE example's all-to-all
+# ---------------------------------------------------------------------------
+
+
+def _close(card: torch.Tensor, host: torch.Tensor, what: str) -> None:
+    np.testing.assert_allclose(card.float().cpu().numpy(), host.float().numpy(), rtol=1e-4,
+                               atol=1e-4, err_msg=what)
+
+
+@pytest.mark.parametrize("arch", ["granite-34b", "stablelm-3b"])
+def test_attention_layouts_smoke_on_card_equal_host(cuda_device, arch):
+    """granite's one K/V head under 4 query heads (the grouped reshape at
+    its extreme) and stablelm's 4 K/V heads, float32 smoke models, TF32
+    off: prefill logits and every layer's K/V cache within 1e-4 of the
+    host's, one decode tick (a cache row dropped for a slot past the end)
+    the same, and the served bytes equal."""
+    from repro_torch.models import decode_step, prefill
+
+    cfg = smoke_config(get_config(arch))
+    assert (cfg.n_kv, cfg.n_heads) == ((1, 4) if arch == "granite-34b" else (4, 4))
+    params_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params_gpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(cuda_device)
+    tok = torch.from_numpy(np.random.default_rng(4).integers(2, cfg.vocab, (3, 12)).astype(
+        np.int32))
+    out = {}
+    for name, params, dev in (("host", params_cpu, "cpu"), ("card", params_gpu, cuda_device)):
+        with torch.no_grad():
+            logits, cache = prefill(params, cfg, {"tokens": tok.to(dev)}, cache_len=14)
+            cache["pos"] = cache["pos"].clone()
+            cache["pos"][2] = 14  # past the cache: its write is dropped
+            nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+            dlogits, dcache = decode_step(params, cfg, cache, nxt)
+        out[name] = (logits, nxt, dlogits, dcache)
+    (hl, hn, hd, hc), (cl, cn, cd, cc) = out["host"], out["card"]
+    assert cc["layers"][0]["k"].shape[2] == cfg.n_kv
+    _close(cl, hl, "prefill logits")
+    assert torch.equal(cn.cpu(), hn)
+    _close(cd, hd, "decode logits")
+    for i, (h, c) in enumerate(zip(hc["layers"], cc["layers"])):
+        for k in h:
+            _close(c[k], h[k], f"layer {i} {k}")
+    assert torch.equal(cc["pos"].cpu(), hc["pos"])
+    wires = serve.synthetic_wires(cfg, 3, 3, seed=2)
+    kw = dict(max_new=4, pad_to=16, slots=4)
+    assert serve.serve_requests(params_gpu, cfg, wires, device=cuda_device, **kw) == \
+        serve.serve_requests(params_cpu, cfg, wires, device="cpu", **kw)
+
+
+def test_moe_example_all_to_all_on_card_equals_host(cuda_device):
+    """``examples/torch_moe_dispatch.py``'s routing and expert all-to-all:
+    the same routed lists, frames and verdicts on the card as on the host,
+    with one ``frame_batch`` and one B6 launch a fabric tick, each equal to
+    its plain version at its recorded call."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "torch_moe_dispatch.py"
+    spec = importlib.util.spec_from_file_location("torch_moe_dispatch", path)
+    md = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(md)
+    cfg = smoke_config(get_config("mixtral-8x22b"))
+    p = md.init_moe_ffn(cfg, torch.float32, torch.Generator().manual_seed(0), "cpu")
+    x = torch.randn((4, 32, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    host = md.route(p, x, cfg)
+    card = md.route(p.to(cuda_device), x.to(cuda_device), cfg)
+    np.testing.assert_array_equal(card["top"], host["top"])
+    assert card["dropped"] == host["dropped"]
+    R = min(md.MAX_RANKS, cfg.moe_experts)
+    want = md.expert_all_to_all(host["top"], cfg.moe_experts, R, "cpu")
+    fp.reset_launches()
+    with fp.recording() as calls:
+        got = md.expert_all_to_all(card["top"], cfg.moe_experts, R, cuda_device)
+    assert fp.LAUNCHES["frame_batch"] >= 1 and fp.LAUNCHES["unpack_frames_batch"] >= 1
+    plain = {"frame_batch": fp.frame_batch_plain,
+             "unpack_frames_batch": fp.unpack_frames_batch_plain}
+    assert {name for name, _ in calls} == set(plain)
+    for name, args in calls:
+        a, b = getattr(fp, name)(*args), plain[name](*args)
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        assert all(torch.equal(u, v) for u, v in zip(a, b)), name
+    assert got["bit_exact"] and got["crc_ok"] and got["all_ok"]
+    assert got["frames_routed"] == want["frames_routed"]
+    for g, w in zip(got["received"], want["received"]):
+        assert [(s, e, ids.tolist()) for s, e, ids in g] == [
+            (s, e, ids.tolist()) for s, e, ids in w]

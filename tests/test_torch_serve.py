@@ -283,13 +283,14 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch
 for m in mods:
     importlib.import_module(m)
 import ast
-tree = ast.parse(open({smoke!r}).read())
-for node in ast.walk(tree):
-    if isinstance(node, ast.Import):
-        for a in node.names:
-            importlib.import_module(a.name)
-    elif isinstance(node, ast.ImportFrom) and node.level == 0:
-        importlib.import_module(node.module)
+for script in {scripts!r}:
+    tree = ast.parse(open(script).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                importlib.import_module(a.name)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            importlib.import_module(node.module)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
              or m.startswith("repro."))
@@ -314,7 +315,7 @@ new = {{"repro_torch.fabric.frames", "repro_torch.fabric.router",
         "repro_torch.runtime.actshard", "repro_torch.runtime.pipeline",
         "repro_torch.runtime.channels", "repro_torch.runtime.compress",
         "repro_torch.launch.mesh", "repro_torch.launch.costanalysis",
-        "repro_torch.launch.dryrun"}}
+        "repro_torch.launch.dryrun", "repro_torch.kernels.ref"}}
 assert new <= set(mods), new - set(mods)
 """
 
@@ -323,9 +324,13 @@ def test_import_isolation():
     """Every module of the port (the fabric, its frame kernels, the stream
     plane, the copied stream codec, analysis and obs modules, the model
     families' MoE and SSM blocks, the training side and the multi-device
-    drivers included) and every import of chip_smoke.py loads without JAX
-    or the JAX package."""
-    code = _ISOLATION.format(src=str(ROOT / "src"), smoke=str(ROOT / "chip_smoke.py"))
+    drivers included) and every import of chip_smoke.py and of the five
+    example twins (``examples/torch_*.py``) loads without JAX or the JAX
+    package."""
+    twins = sorted(str(p) for p in (ROOT / "examples").glob("torch_*.py"))
+    assert len(twins) == 5, twins
+    code = _ISOLATION.format(src=str(ROOT / "src"),
+                             scripts=[str(ROOT / "chip_smoke.py")] + twins)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=ROOT, timeout=120)

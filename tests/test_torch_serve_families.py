@@ -1,5 +1,7 @@
 """Port parity, serving the model families: ``serve_requests`` of the port
-against the JAX package's for mixtral, phi3.5-moe, gemma2, jamba and xlstm.
+against the JAX package's for mixtral, phi3.5-moe, gemma2, jamba, xlstm,
+granite-34b (multi-query attention: one K/V head for every query head, the
+2-matrix gelu MLP) and stablelm-3b (full multi-head attention).
 
 The same request wires and the same (carried-over) parameters of each
 architecture's float32 ``smoke_config`` (gemma2 and xlstm cut to 2 layers,
@@ -31,7 +33,7 @@ from repro_torch.models import params_from_jax
 from repro_torch.runtime.scheduler import ContinuousBatcher, SchedulerConfig
 
 ARCHS = ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "gemma2-27b", "jamba-1.5-large-398b",
-         "xlstm-125m"]
+         "xlstm-125m", "granite-34b", "stablelm-3b"]
 LAYERS = {"gemma2-27b": 2, "xlstm-125m": 2, "jamba-1.5-large-398b": 5}
 
 
@@ -83,7 +85,8 @@ def test_serve_through_the_ring(arch):
     assert tserve.serve_requests(tparams, cfg, wires, device="cpu", **kw) == want
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-1.5-large-398b", "granite-34b",
+                                  "stablelm-3b"])
 def test_slot_cache_follows_the_reference(arch):
     """Tick by tick the same emissions, and the whole slot cache — every
     state tensor of every slot, idle ones included — agrees with the

@@ -558,3 +558,53 @@ def test_train_checkpoint_restart_bitwise(tmp_path):
     assert "['opt'].mu['layers'][0]['mlstm']['wq']" in t1
     for k in t1:
         np.testing.assert_array_equal(t1[k], t2[k], err_msg=k)
+
+
+class _Flagging:
+    """A ``StragglerWatchdog`` that calls the steps in ``slow`` (counted
+    from the run's first step) stragglers, whatever their time."""
+
+    def __init__(self, slow):
+        self.slow, self.n, self.flagged = set(slow), 0, 0
+
+    def start(self):
+        pass
+
+    def stop(self):
+        hit = self.n in self.slow
+        self.n += 1
+        self.flagged += hit
+        return hit
+
+
+def test_straggler_checkpoints_leave_the_scheduled_ones(tmp_path, monkeypatch):
+    """A straggler forces a checkpoint after its step; the next save
+    supersedes it, so the kept checkpoints are the scheduled ones however
+    many steps the host's load made slow.  A run that dies between a
+    straggler checkpoint and the next scheduled one resumes from it, and
+    ends bitwise where an uninterrupted run ends, with the same files."""
+    from repro_torch.launch import train as ttrain
+
+    def run(d, slow=(), **kw):
+        monkeypatch.setattr(ttrain, "StragglerWatchdog", lambda: _Flagging(slow))
+        return ttrain.train_loop("yi-6b", steps=16, batch=2, seq=32, ckpt_dir=str(d),
+                                 ckpt_every=4, log_every=100, device="cpu", **kw)
+
+    whole = run(tmp_path / "a", slow=(8, 9, 10, 13))
+    assert whole["stragglers"] == 4
+    assert CheckpointManager(str(tmp_path / "a")).all_steps() == [8, 12, 16]
+    d = tmp_path / "b"
+    with pytest.raises(SystemExit) as died:
+        run(d, slow=(9,), die_at=11)
+    assert died.value.code == 17
+    assert CheckpointManager(str(d)).all_steps() == [4, 8, 10]
+    resumed = run(d, resume="auto")
+    assert resumed["steps"] == 6  # steps 10-15
+    assert CheckpointManager(str(d)).all_steps() == [8, 12, 16]
+    for (n, p), q in zip(whole["params"].named_parameters(), resumed["params"].parameters()):
+        assert torch.equal(p, q), n
+    t1 = load_checkpoint(CheckpointManager(str(tmp_path / "a")).path(16))[1]
+    t2 = load_checkpoint(CheckpointManager(str(d)).path(16))[1]
+    assert set(t1) == set(t2)
+    for k in t1:
+        np.testing.assert_array_equal(t1[k], t2[k], err_msg=k)
