@@ -1,0 +1,10 @@
+"""Mean duration of the fabric's ticks, dispatch to readback: the
+``fabric.tick`` trace events (host clock) of the window's unprofiled
+calls."""
+UNIT = "ms"
+
+
+def read(run):
+    d = [e["dur"] for c in run.measured_calls() if c.obs_trace is not None
+         for e in c.obs_trace.events if e.get("name") == "fabric.tick"]
+    return sum(d) / len(d) / 1e3 if d else None
