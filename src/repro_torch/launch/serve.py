@@ -72,6 +72,7 @@ from ..data.schemas import request_schema, response_schema
 from ..device import DeviceLike, default_device
 from ..kernels.ops import decode_batch_kernel, wires_to_u32
 from ..models.model import init_params
+from ..obs.timeline import resolve, span
 from ..runtime.scheduler import ContinuousBatcher, SchedulerConfig, extra_inputs
 from .steps import make_prefill_step, make_serve_step
 
@@ -202,6 +203,8 @@ def serve_requests(
     slots: int = 8,
     admit_cap: Optional[int] = None,
     device: DeviceLike = None,
+    trace=None,
+    metrics=None,
 ) -> List[bytes]:
     """Answer N request wires through the batched message plane on
     ``device`` (default: the CUDA card; ``params`` must live there).
@@ -210,23 +213,36 @@ def serve_requests(
     batching generate -> bulk SER.  Responses come back in request order; a
     request with zero prompts yields an empty-outputs response wire.  Every
     prompt is padded/truncated to the static ``pad_to``.
+
+    ``trace`` (an ``obs.TraceRecorder``) gets the call's timeline
+    (``obs.timeline``): a ``serve.call`` span around ``serve.des`` (the
+    batched DES, readback included), the batcher's tick spans, the model's
+    layer spans and ``moe.*`` counters, and ``serve.ser`` (the bulk SER);
+    their device times are read on return.  ``metrics`` (an
+    ``obs.MetricsRegistry``) gets the batcher's ``batcher.*`` counters and
+    gauges and, with a trace, the ``moe.*`` counters.
     """
     dev = default_device(device)
     _check_params_device(params, dev)
-    reqs = decode_request_batch(wires, dev)
-    sched = SchedulerConfig(
-        slots=slots, prompt_cap=pad_to, max_new=max_new, admit_cap=admit_cap
-    )
-    batcher = ContinuousBatcher(params, cfg, sched)
-    for m, (_, prompts) in enumerate(reqs):
-        for i, p in enumerate(prompts):
-            batcher.submit((m, i), p)
-    outs = batcher.run()
-    responses = [
-        (rid, [outs[(m, i)] for i in range(len(prompts))])
-        for m, (rid, prompts) in enumerate(reqs)
-    ]
-    return encode_response_batch(responses)
+    with span(trace, "serve.call"):
+        with span(trace, "serve.des"):
+            reqs = decode_request_batch(wires, dev)
+        sched = SchedulerConfig(
+            slots=slots, prompt_cap=pad_to, max_new=max_new, admit_cap=admit_cap
+        )
+        batcher = ContinuousBatcher(params, cfg, sched, metrics=metrics, trace=trace)
+        for m, (_, prompts) in enumerate(reqs):
+            for i, p in enumerate(prompts):
+                batcher.submit((m, i), p)
+        outs = batcher.run()
+        responses = [
+            (rid, [outs[(m, i)] for i in range(len(prompts))])
+            for m, (rid, prompts) in enumerate(reqs)
+        ]
+        with span(trace, "serve.ser"):
+            out = encode_response_batch(responses)
+    resolve(trace, metrics)  # the last tick's copy has synced the device
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -599,9 +615,10 @@ def serve_requests_streaming(
     ``batcher.admit``/``evict``, ``stream.first_flush``,
     ``serve.first_token``, ``serve.retry``, done at the last EOS); a
     ``trace`` (an ``obs.TraceRecorder``) gets a ``serve.tick`` event per
-    compute tick, a ``stream.chunk`` instant per arriving chunk and the
-    fabric's ``fabric.tick`` events, and creates a ``SpanTracker`` on
-    itself when ``spans`` is None; ``analyze=True`` proves the serving
+    compute tick, a ``stream.chunk`` instant per arriving chunk, the
+    fabric's ``fabric.tick`` events and the batchers' tick spans
+    (``obs.timeline``, device times read on return), and creates a
+    ``SpanTracker`` on itself when ``spans`` is None; ``analyze=True`` proves the serving
     schemas, the fabric and every tick's demand before anything is sent.
     """
     from ..stream import ChunkLane, StreamReader, flush_lanes, logprob_stream_plan
@@ -713,7 +730,7 @@ def serve_requests_streaming(
         batcher = batchers.get(s)
         if batcher is None:
             batcher = ContinuousBatcher(params, cfg, sched, metrics=metrics,
-                                        spans=spans, logprobs=logprobs)
+                                        spans=spans, logprobs=logprobs, trace=trace)
             batchers[s] = batcher
         for d, (_, prompts) in zip(arrived, local_reqs):
             k = admitted[s]
@@ -989,6 +1006,7 @@ def serve_requests_streaming(
         (rid, [outs[(m, j)] for j in range(len(prompts))])
         for m, (rid, prompts) in enumerate(reqs)
     ]
+    resolve(trace, metrics)  # the batchers' device times, after their last sync
     return encode_response_batch(responses)
 
 
@@ -1141,7 +1159,8 @@ def main(argv: Optional[List[str]] = None) -> None:
             device=dev)
     else:
         resp_wires = serve_requests(params, cfg, wires, max_new=args.max_new,
-                                    pad_to=args.pad_to, slots=args.slots, device=dev)
+                                    pad_to=args.pad_to, slots=args.slots, device=dev,
+                                    trace=trace, metrics=metrics)
     dt = time.perf_counter() - t0
     n_tok = sum(len(o) for rw in resp_wires for o in decode_response(rw)[1])
     mode = ("sequential" if args.sequential

@@ -25,6 +25,8 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models.model import LM, decode_step, init_cache, init_params, loss_fn, prefill
+from ..obs.timeline import current as current_trace
+from ..obs.timeline import span
 from ..optim import AdamWConfig, OptState, adamw_init, adamw_update, microbatched_grads
 from ..runtime.sharding import with_sharding_constraint
 
@@ -78,10 +80,11 @@ def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None,
         # last_only: serving prefill needs next-token logits, not (B, S, V)
         logits, cache = prefill(params, cfg, batch, cache_len=cache_len, last_only=True)
         # the first token comes from the last (padded) position
-        if logprobs:
-            next_tok, tok_lp = _greedy_with_logprob(logits[:, -1:])
-            return next_tok, tok_lp, cache
-        next_tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        with span(current_trace(), "model.argmax"):
+            if logprobs:
+                next_tok, tok_lp = _greedy_with_logprob(logits[:, -1:])
+                return next_tok, tok_lp, cache
+            next_tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         return next_tok, cache
 
     return prefill_step
@@ -91,10 +94,11 @@ def make_serve_step(cfg: ModelConfig, logprobs: bool = False):
     @torch.no_grad()
     def serve_step(params: LM, cache: Dict, tokens: torch.Tensor):
         logits, cache = decode_step(params, cfg, cache, tokens)
-        if logprobs:
-            next_tok, tok_lp = _greedy_with_logprob(logits)
-            return next_tok, tok_lp, cache
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        with span(current_trace(), "model.argmax"):
+            if logprobs:
+                next_tok, tok_lp = _greedy_with_logprob(logits)
+                return next_tok, tok_lp, cache
+            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_tok, cache
 
     return serve_step

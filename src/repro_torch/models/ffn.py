@@ -26,6 +26,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..obs.timeline import count
+from ..obs.timeline import current as current_trace
 from ..runtime.actshard import constrain as act_constrain
 from .common import _param, act_fn, dense_init
 
@@ -122,6 +124,10 @@ def _moe_group(p: MoEFFN, xf: torch.Tensor, cfg: ModelConfig, C: int, act):
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(G * topk, device=dev) - starts[se]
     keep = rank < C
+    trace = current_trace()
+    if trace is not None:  # (token, slot) pairs routed, and those over capacity
+        count(trace, "moe.routed", keep.numel())
+        count(trace, "moe.dropped", keep.numel() - keep.sum())
 
     # pack into per-expert frames; over-capacity pairs land in the trash
     # row E*C, which is cut off (the reference drops them)

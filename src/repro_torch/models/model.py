@@ -52,6 +52,8 @@ from torch.utils.checkpoint import (
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, default_device
+from ..obs.timeline import current as current_trace
+from ..obs.timeline import span
 from ..runtime.actshard import constrain as act_constrain
 from . import attention as attn_mod
 from . import ffn as ffn_mod
@@ -74,6 +76,9 @@ _SSM_KINDS = {
     "mlstm": (ssm_mod.init_mlstm, ssm_mod.mlstm_forward, ssm_mod.mlstm_decode),
     "slstm": (ssm_mod.init_slstm, ssm_mod.slstm_forward, ssm_mod.slstm_decode),
 }
+#: the timeline span of each sequence mixer (``obs.timeline``: host time,
+#: and a ``hgum.model.*`` range in a profiler's trace)
+_MIXER_SPAN = {"attn": "model.attention", **{k: f"model.{k}" for k in _SSM_KINDS}}
 
 
 # ---------------------------------------------------------------------------
@@ -309,37 +314,44 @@ def layer_forward(
 ) -> Tuple[torch.Tensor, Dict, Dict]:
     """Returns (x, new_cache, aux); ``aux`` holds the MoE FFN's
     ``moe_balance_loss`` and ``moe_dropped``, and is empty otherwise.
-    ``segment_ids`` reach the attention mixer only, as in the reference."""
+    ``segment_ids`` reach the attention mixer only, as in the reference.
+    Under an open ``obs.timeline`` span each sublayer (norm, mixer or FFN,
+    residual add) is a ``model.*`` span of its own."""
     aux: Dict = {}
-    h = apply_norm(cfg.norm, p.ln1, x, cfg.norm_eps)
-    window = cfg.window if cfg.attn_is_local(layer_idx) else None
-    if seq_kind == "attn":
-        if mode == "decode":
-            out, new_cache = attn_mod.attn_decode(p.attn, h, cfg, cache, pos, window=window)
+    trace = current_trace()
+    with span(trace, _MIXER_SPAN.get(seq_kind, "model.mixer")):
+        h = apply_norm(cfg.norm, p.ln1, x, cfg.norm_eps)
+        window = cfg.window if cfg.attn_is_local(layer_idx) else None
+        if seq_kind == "attn":
+            if mode == "decode":
+                out, new_cache = attn_mod.attn_decode(p.attn, h, cfg, cache, pos,
+                                                      window=window)
+            else:
+                out, (k, v) = attn_mod.attn_forward(p.attn, h, cfg, window=window,
+                                                    positions=positions,
+                                                    segment_ids=segment_ids,
+                                                    q_offset=q_offset)
+                new_cache = {"k": k, "v": v}
+        elif seq_kind in _SSM_KINDS:
+            _, full_fn, decode_fn = _SSM_KINDS[seq_kind]
+            fn = decode_fn if mode == "decode" else full_fn
+            out, new_cache = fn(getattr(p, seq_kind), h, cfg, cache)
         else:
-            out, (k, v) = attn_mod.attn_forward(p.attn, h, cfg, window=window,
-                                                positions=positions, segment_ids=segment_ids,
-                                                q_offset=q_offset)
-            new_cache = {"k": k, "v": v}
-    elif seq_kind in _SSM_KINDS:
-        _, full_fn, decode_fn = _SSM_KINDS[seq_kind]
-        fn = decode_fn if mode == "decode" else full_fn
-        out, new_cache = fn(getattr(p, seq_kind), h, cfg, cache)
-    else:
-        raise ValueError(seq_kind)
-    if cfg.sandwich_norm:
-        out = apply_norm(cfg.norm, p.ln1_post, out, cfg.norm_eps)
-    x = x + out
+            raise ValueError(seq_kind)
+        if cfg.sandwich_norm:
+            out = apply_norm(cfg.norm, p.ln1_post, out, cfg.norm_eps)
+        x = x + out
 
     if ffn_kind != "none":
-        h = apply_norm(cfg.norm, p.ln2, x, cfg.norm_eps)
-        if ffn_kind == "dense":
-            out = ffn_mod.dense_ffn(p.ffn, h, cfg)
-        else:
-            out, aux = ffn_mod.moe_ffn(p.moe, h, cfg)
-        if cfg.sandwich_norm:
-            out = apply_norm(cfg.norm, p.ln2_post, out, cfg.norm_eps)
-        x = x + out
+        with span(trace, "model.ffn" if ffn_kind == "dense" else "model.moe"):
+            h = apply_norm(cfg.norm, p.ln2, x, cfg.norm_eps)
+            if ffn_kind == "dense":
+                out = ffn_mod.dense_ffn(p.ffn, h, cfg)
+            else:
+                out, aux = ffn_mod.moe_ffn(p.moe, h, cfg)
+            if cfg.sandwich_norm:
+                out = apply_norm(cfg.norm, p.ln2_post, out, cfg.norm_eps)
+            x = x + out
     return x, new_cache, aux
 
 
@@ -475,12 +487,13 @@ def forward(
                 aux_acc[k] = aux_acc.get(k, 0.0) + v / cfg.n_layers
             if want_cache:
                 caches.append(kv)
-    x = apply_norm(cfg.norm, params.final_norm, x, cfg.norm_eps)
-    if n_prefix:
-        x = x[:, n_prefix:]
-    if last_only:
-        x = x[:, -1:]
-    logits = _unembed(params, cfg, x)
+    with span(current_trace(), "model.head"):
+        x = apply_norm(cfg.norm, params.final_norm, x, cfg.norm_eps)
+        if n_prefix:
+            x = x[:, n_prefix:]
+        if last_only:
+            x = x[:, -1:]
+        logits = _unembed(params, cfg, x)
     cache = None
     if want_cache:
         # the vision prefix holds cache positions too: S counts it
@@ -658,8 +671,9 @@ def decode_step(
         if cfg.family == "encdec":
             x = _cross_block(params, cfg, i, x, cache["enc_kv"][i])
         new_layers.append(kv)
-    x = apply_norm(cfg.norm, params.final_norm, x, cfg.norm_eps)
-    logits = _unembed(params, cfg, x)
+    with span(current_trace(), "model.head"):
+        x = apply_norm(cfg.norm, params.final_norm, x, cfg.norm_eps)
+        logits = _unembed(params, cfg, x)
     new_cache = dict(cache)
     new_cache["layers"] = new_layers
     new_cache["pos"] = pos + 1

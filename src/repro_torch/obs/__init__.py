@@ -18,11 +18,12 @@ Carried over from the reference's ``obs`` package, module for module:
 * **export** (:mod:`.trace`, :mod:`.report`): Chrome-trace JSON
   timelines, text/JSON metric reports, snapshot diffs, attribution
   tables, plus ``python -m repro_torch.obs`` to summarize, ``--validate``,
-  ``diff``, ``attribution``, ``slo``, or ``history``.
+  ``diff``, ``attribution`` or ``slo``; :mod:`.timeline` puts
+  program spans and counters on a recorder's clock.
 
-Everything here is host code; the trace clock is the host's
-``time.perf_counter``, so a traced run makes the same device syncs as an
-untraced one.  :func:`environment_meta` names torch, CUDA and the card.
+Everything here is host code, save the CUDA events of the timeline's
+device spans; the trace clock is the host's ``time.perf_counter``, so a
+traced run makes the same device syncs as an untraced one.  :func:`environment_meta` names torch, CUDA and the card.
 """
 from .counters import (
     ATT_FIELDS,

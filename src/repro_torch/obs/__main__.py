@@ -7,7 +7,6 @@
     python -m repro_torch.obs diff a.json b.json        # compare two snapshots
     python -m repro_torch.obs attribution spans.json    # latency breakdown table
     python -m repro_torch.obs slo "ttft_p95_s=0.5" --metrics m.json
-    python -m repro_torch.obs history [bench_history.jsonl]
 
 The single-file form auto-detects the kind: a ``traceEvents`` key (or a
 bare JSON array) is a Chrome trace; anything with a ``metrics`` list is
@@ -26,7 +25,7 @@ from .metrics import validate_snapshot
 from .report import render_text
 from .trace import validate_trace
 
-SUBCOMMANDS = ("diff", "attribution", "slo", "history")
+SUBCOMMANDS = ("diff", "attribution", "slo")
 
 
 def _load_json(path: str):
@@ -98,57 +97,6 @@ def _cmd_slo(argv) -> int:
     return 0 if rep.ok else 1
 
 
-def _cmd_history(argv) -> int:
-    ap = argparse.ArgumentParser(
-        prog="python -m repro_torch.obs history",
-        description="Summarize the bench trajectory "
-        "(experiments/bench_history.jsonl rows appended by "
-        "benchmarks.run --smoke).",
-    )
-    ap.add_argument("file", nargs="?", default="experiments/bench_history.jsonl")
-    ap.add_argument("--metric", action="append", default=None,
-                    help="metric key(s) to tabulate (default: a few headline "
-                    "fabric/stream numbers present in the rows)")
-    args = ap.parse_args(argv)
-    try:
-        with open(args.file) as f:
-            rows = [json.loads(ln) for ln in f if ln.strip()]
-    except (OSError, json.JSONDecodeError) as e:
-        print(f"error: cannot load {args.file}: {e}", file=sys.stderr)
-        return 2
-    if not rows:
-        print(f"{args.file}: no history rows yet")
-        return 0
-    flat_rows = []
-    for r in rows:
-        flat = {}
-        for mod, metrics in (r.get("metrics") or {}).items():
-            if isinstance(metrics, dict):
-                for k, v in metrics.items():
-                    if isinstance(v, (int, float)):
-                        flat[f"{mod}.{k}"] = v
-        flat_rows.append((r.get("git_sha"), r.get("timestamp"), flat))
-    keys = args.metric
-    if not keys:
-        seen = sorted({k for _, _, f in flat_rows for k in f})
-        prefer = [k for k in seen if any(
-            t in k for t in ("frames_per_s", "ttft", "tokens_per_s", "p95")
-        )]
-        keys = (prefer or seen)[:6]
-    print(f"bench history: {len(rows)} run(s) from {args.file}")
-    hdr = ["sha", "timestamp"] + keys
-    table = [hdr]
-    for sha, ts, flat in flat_rows:
-        table.append(
-            [str(sha)[:9] if sha else "-", str(ts or "-")]
-            + [f"{flat[k]:g}" if k in flat else "-" for k in keys]
-        )
-    widths = [max(len(row[i]) for row in table) for i in range(len(hdr))]
-    for row in table:
-        print("  " + "  ".join(c.ljust(w) for c, w in zip(row, widths)))
-    return 0
-
-
 def _detect(obj) -> str:
     if isinstance(obj, list):
         return "trace"
@@ -170,13 +118,12 @@ def main(argv=None) -> int:
             "diff": _cmd_diff,
             "attribution": _cmd_attribution,
             "slo": _cmd_slo,
-            "history": _cmd_history,
         }[argv[0]](argv[1:])
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.obs",
         description="Summarize or validate a repro telemetry artifact "
         "(metrics snapshot or Chrome-trace JSON); subcommands: "
-        "diff, attribution, slo, history.",
+        "diff, attribution, slo.",
     )
     ap.add_argument("file", help="metrics snapshot or trace JSON file")
     ap.add_argument("--validate", action="store_true",

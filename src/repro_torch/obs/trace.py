@@ -13,7 +13,11 @@ A :class:`TraceRecorder` collects events in the Chrome Trace Event Format
   steps per tick, queue depths, occupancy.
 
 Timestamps are microseconds since the recorder was created
-(``time.perf_counter`` based — monotonic, sub-tick resolution).  Tracks
+(``time.perf_counter`` based — monotonic, sub-tick resolution).  The
+recorder reads that clock and the Unix-epoch clock together once, at
+creation (:attr:`TraceRecorder.anchor`, written under ``otherData``), so
+``ts`` lays onto ``torch.profiler``'s timeline, which stamps Unix-epoch
+nanoseconds: ``epoch_ns = anchor[1] + ts * 1000``.  Tracks
 are named via pid/tid metadata events (``process_name``/``thread_name``),
 so fabric ranks and serve shards render as separate rows.
 
@@ -38,7 +42,9 @@ class TraceRecorder:
     """Collects Chrome-trace events; ``save()`` writes the JSON object."""
 
     def __init__(self) -> None:
-        self._t0 = time.perf_counter()
+        #: (``time.perf_counter_ns()``, ``time.time_ns()``) at ts 0
+        self.anchor = (time.perf_counter_ns(), time.time_ns())
+        self._t0 = self.anchor[0] / 1e9
         self.events: List[dict] = []
         self._named: set = set()
 
@@ -108,6 +114,8 @@ class TraceRecorder:
         return {
             "traceEvents": list(self.events),
             "displayTimeUnit": "ms",
+            "otherData": {"clock_anchor": {"perf_counter_ns": self.anchor[0],
+                                           "unix_ns": self.anchor[1]}},
         }
 
     def save(self, path) -> None:

@@ -35,6 +35,13 @@ in :attr:`ContinuousBatcher.tick_logprobs`.
 ``metrics`` (an ``obs.MetricsRegistry``) receives the reference's
 ``batcher.*`` counters and gauges; ``spans`` is the reference's duck-typed
 span hook (``event(span_id, name, **fields)``), a no-op when None.
+``trace`` (an ``obs.TraceRecorder``) gets the tick's timeline
+(``obs.timeline``): a ``batcher.tick`` span from ``step_begin`` to the end
+of ``step_finish``, holding ``batcher.prefill`` (the admit's prefill and
+slot copies) and ``batcher.decode`` (the decode step's enqueue), both with
+their device time, then ``batcher.sync`` (the one ``.cpu()``) and
+``batcher.emit`` (the Python after it); a tick's ``gap_ms`` is the device
+time from the last tick's final enqueue to this tick's start.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..obs.timeline import NULL_SPAN, mark, span
 
 
 @dataclass(frozen=True)
@@ -140,7 +148,7 @@ class ContinuousBatcher:
     """Admit/decode/evict loop over a fixed-slot KV cache."""
 
     def __init__(self, params, cfg: ModelConfig, sched: SchedulerConfig,
-                 metrics=None, spans=None, logprobs: bool = False):
+                 metrics=None, spans=None, logprobs: bool = False, trace=None):
         from ..launch.steps import cached_serve_steps
         from ..models.model import cache_zeros
 
@@ -154,6 +162,10 @@ class ContinuousBatcher:
         #: get "batcher.admit"/"batcher.evict" events
         self.spans = spans
         self.span_of: Dict[Hashable, int] = {}
+        #: optional obs.TraceRecorder for the tick's timeline spans
+        self.trace = trace
+        self._tick = NULL_SPAN
+        self._tick_end = None  # mark after the last tick's final enqueue
         #: when True the steps also return the chosen token's logprob,
         #: surfaced per tick in :attr:`tick_logprobs` (the greedy pick is
         #: unchanged — token output is byte-identical either way)
@@ -199,25 +211,27 @@ class ContinuousBatcher:
         take = min(len(free), A, len(self.pending))
         seqs = [self.pending.popleft() for _ in range(take)]
         S = self.sched.prompt_cap
-        # right-padded with token 0, no pad mask (the reference's batch)
-        toks = np.zeros((A, S), np.int32)
-        for j, seq in enumerate(seqs):
-            toks[j, : min(len(seq.tokens), S)] = seq.tokens[:S]
-        batch = dict(self._extra_inputs)
-        batch["tokens"] = torch.from_numpy(toks).to(self.device)
-        if self.logprobs:
-            next_tok, next_lp, new_cache = self.prefill_step(self.params, batch)
-        else:
-            next_tok, new_cache = self.prefill_step(self.params, batch)
-        # unused admit rows -> out-of-range slot id, dropped by the copy
-        slot_ids = np.full(A, self.sched.slots, np.int64)
-        slot_ids[:take] = free[:take]
-        _scatter_rows(self.cache, self.cur_tok, new_cache, next_tok, slot_ids)
+        with span(self.trace, "batcher.prefill", device=self.device, parent=self._tick,
+                  rows=take):
+            # right-padded with token 0, no pad mask (the reference's batch)
+            toks = np.zeros((A, S), np.int32)
+            for j, seq in enumerate(seqs):
+                toks[j, : min(len(seq.tokens), S)] = seq.tokens[:S]
+            batch = dict(self._extra_inputs)
+            batch["tokens"] = torch.from_numpy(toks).to(self.device)
+            if self.logprobs:
+                next_tok, next_lp, new_cache = self.prefill_step(self.params, batch)
+            else:
+                next_tok, new_cache = self.prefill_step(self.params, batch)
+            # unused admit rows -> out-of-range slot id, dropped by the copy
+            slot_ids = np.full(A, self.sched.slots, np.int64)
+            slot_ids[:take] = free[:take]
+            _scatter_rows(self.cache, self.cur_tok, new_cache, next_tok, slot_ids)
+            self._first_tok = next_tok[:take, 0]
+            if self.logprobs:
+                _scatter_vec(self.cur_lp, next_lp, slot_ids)
+                self._first_lp = next_lp[:take, 0]
         self._admitted = seqs
-        self._first_tok = next_tok[:take, 0]
-        if self.logprobs:
-            _scatter_vec(self.cur_lp, next_lp, slot_ids)
-            self._first_lp = next_lp[:take, 0]
         for j, seq in enumerate(seqs):
             seq.remaining = self.sched.max_new - 1
             self.active[free[j]] = seq
@@ -249,6 +263,8 @@ class ContinuousBatcher:
         batched decode step for every live slot.  Returns without waiting
         for the device; True when a decode step was enqueued.  Must be
         paired with :meth:`step_finish`."""
+        self._tick = span(self.trace, "batcher.tick").begin()
+        self._tick.interval("gap_ms", self._tick_end, mark(self.trace, self.device))
         self._admitted, self._first_tok, self._first_lp = [], None, None
         self.tick_logprobs = {}
         self._admit()
@@ -258,11 +274,13 @@ class ContinuousBatcher:
         if self.n_active == 0:
             self._stepped = False
             return False
-        if self.logprobs:
-            self.cur_tok, self.cur_lp, self.cache = self.decode_step(
-                self.params, self.cache, self.cur_tok)
-        else:
-            self.cur_tok, self.cache = self.decode_step(self.params, self.cache, self.cur_tok)
+        with span(self.trace, "batcher.decode", device=self.device, parent=self._tick):
+            if self.logprobs:
+                self.cur_tok, self.cur_lp, self.cache = self.decode_step(
+                    self.params, self.cache, self.cur_tok)
+            else:
+                self.cur_tok, self.cache = self.decode_step(self.params, self.cache,
+                                                            self.cur_tok)
         self.steps_run += 1
         self._stepped = True
         if self.metrics is not None:
@@ -273,6 +291,7 @@ class ContinuousBatcher:
         """Sync the tick and return its emissions: every token the tick
         produced — admit-time first tokens first — as
         ``(seq_id, position, token)`` triples in emission order."""
+        tick, self._tick = self._tick, NULL_SPAN
         parts, lp_parts = [], []
         if self._first_tok is not None:
             parts.append(self._first_tok)
@@ -281,11 +300,16 @@ class ContinuousBatcher:
             parts.append(self.cur_tok[:, 0])
             lp_parts.append(self.cur_lp[:, 0])
         if not parts:
+            tick.end()
             return []
-        if self.logprobs:
-            # the float32 logprob bits ride beside the tokens: one copy
-            parts.append(torch.cat(lp_parts).view(torch.int32))
-        host = torch.cat(parts).cpu().numpy()  # the tick's one host sync
+        with span(self.trace, "batcher.sync", parent=tick):
+            if self.logprobs:
+                # the float32 logprob bits ride beside the tokens: one copy
+                parts.append(torch.cat(lp_parts).view(torch.int32))
+            flat = torch.cat(parts)
+            self._tick_end = mark(self.trace, self.device)
+            host = flat.cpu().numpy()  # the tick's one host sync
+        emit = span(self.trace, "batcher.emit", parent=tick).begin()
         n = len(host) // 2 if self.logprobs else len(host)
         lps = host[n:].view(np.float32) if self.logprobs else None
         emitted: List[Tuple[Hashable, int, int]] = []
@@ -307,6 +331,8 @@ class ContinuousBatcher:
             self._evict()
         self._admitted, self._first_tok, self._first_lp = [], None, None
         self._stepped = False
+        emit.end()
+        tick.end()
         return emitted
 
     def step(self) -> None:

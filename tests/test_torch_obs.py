@@ -289,7 +289,7 @@ def artifacts(tmp_path):
     snap["meta"] = tobs.environment_meta()
     files = {"a": tmp_path / "a.json", "b": tmp_path / "b.json", "t": tmp_path / "t.json",
              "bad": tmp_path / "bad.json", "spans": tmp_path / "spans.json",
-             "hist": tmp_path / "hist.jsonl", "badtrace": tmp_path / "bt.json"}
+             "badtrace": tmp_path / "bt.json"}
     files["a"].write_text(json.dumps(snap))
     b = tobs.MetricsRegistry()
     b.counter("x").add(5)
@@ -306,11 +306,6 @@ def artifacts(tmp_path):
     sp.event(rid, "serve.first_token")
     sp.finish(rid)
     files["spans"].write_text(json.dumps(sp.export()))
-    files["hist"].write_text("\n".join(json.dumps(
-        {"git_sha": sha, "timestamp": ts, "metrics": {"fabric": {"smoke_frames_per_s": v,
-                                                                 "ttft_p95": v / 1e4}}})
-        for sha, ts, v in (("abc123def456", "t0", 1000.0), ("def456abc789", "t1", 1100.0)))
-        + "\n")
     return {k: str(v) for k, v in files.items()}
 
 
@@ -322,8 +317,6 @@ _ARGVS = [
     ["slo", "max:x=10", "--metrics", "{a}"], ["slo", "max:x=0.5", "--metrics", "{b}"],
     ["slo", "drift_free,max:x=2", "--metrics", "{a}", "--window", "1"],
     ["attribution", "{spans}"], ["attribution", "{spans}", "--json"],
-    ["history", "{hist}"], ["history", "{hist}", "--metric", "fabric.smoke_frames_per_s"],
-    ["history", "{missing}"],
 ]
 
 
