@@ -24,8 +24,10 @@ What it does, in order (any failed check raises and the exit code is 1):
    prompts of 16-256 tokens, ``pad_to=256``, ``max_new=32``, 16 slots.  The
    kernel DES must equal the plain DES and the host DesFSM; every response
    wire must parse back with ``max_new`` tokens per prompt; the unpack
-   kernels' launch counters must rise during the serve run.  The float32
-   smoke model must serve the same bytes on the card and on the host.
+   kernels' launch counters must rise during the serve run, and the
+   decode-attention kernel must launch once a layer a decode step (layers
+   x decode steps).  The float32 smoke model must serve the same bytes on
+   the card and on the host.
 4. Records: ``kernels.ops.decode_message_kernel`` on one wire of 2**20
    13-byte records (an unaligned uniform run): the general run kernel must
    launch, and the lanes must equal the record bytes.
@@ -215,6 +217,20 @@ What it does, in order (any failed check raises and the exit code is 1):
    lines name the card and its power limit, with each twin's wall
    seconds, the all-to-all's frames and exchange ms, and demo-100m's
    first and final loss and ms a step.
+17. Decode attention (right after phase 3, on its own inputs): the kernel
+   of ``kernels.decode_attention`` against its plain version at the two
+   benchmark cells' calls (yi-6b 128 rows x 1152 keys, GQA 32/4; mixtral
+   64 x 1152, 48/8 in a 1152-key ring), every attention family's heads
+   (granite-34b's 48/1 to stablelm-3b's 32/32, head dims 64-128), gemma2's
+   full 4096-key ring with its softcap and the smoke models' float32: one
+   launch a call, the caches bit for bit the plain version's after the
+   append (a wrapped ring and a row past the cache, which keeps its old
+   K/V, included), out within ``DECODE_ATTN_RTOL``/``DECODE_ATTN_ATOL``;
+   the yi-6b call captured in a CUDA graph and replayed at new positions;
+   ``[decode-attn]`` lines with the kernel's time, its byte bound, the
+   plain version's and ``scaled_dot_product_attention``'s (a yardstick
+   the port never calls) at both cells' calls, and a ``[cost]`` line with
+   the wrapper's host microseconds a call.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -264,6 +280,7 @@ from repro_torch.data.pipeline import decode_batch  # noqa: E402
 from repro_torch.data.schemas import request_schema, response_schema  # noqa: E402
 from repro_torch.fabric import Fabric, FabricConfig, FaultPlan, frame_stream  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import frame_pack as fp  # noqa: E402
 from repro_torch.kernels import phit_unpack as pu  # noqa: E402
 from repro_torch.launch import costanalysis  # noqa: E402
@@ -305,6 +322,7 @@ stream_plans = importlib.import_module("repro_torch.core.stream_plans")
 HBM_BYTES_PER_S = 3.35e12
 PHIT_SOURCE = "src/repro_torch/kernels/csrc/phit_unpack.cu"
 FRAME_SOURCE = "src/repro_torch/kernels/csrc/frame_pack.cu"
+DECODE_ATTN_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 KERNELS = {
     # name: (source, replaces, plain version, wrapper, launch counters)
     "unpack_run_aligned": (PHIT_SOURCE, "src/repro/kernels/phit_unpack.py:48",
@@ -328,6 +346,10 @@ KERNELS = {
                  fp.pack_run_plain, fp.pack_run, fp.LAUNCHES),
     "stamp_headers": (FRAME_SOURCE, "src/repro/kernels/frame_pack.py:68",
                       fp.stamp_headers_plain, fp.stamp_headers, fp.LAUNCHES),
+    "decode_attention": (DECODE_ATTN_SOURCE,
+                         "none (the reference's decode_attention is plain jnp, "
+                         "src/repro/models/common.py:242)",
+                         da.append_and_attend_plain, da.append_and_attend, da.LAUNCHES),
 }
 FRAME_KERNELS = ("pack_frames_batch", "frame_batch", "unpack_frames_batch")
 SER_KERNELS = ("pack_run", "stamp_headers")
@@ -423,6 +445,35 @@ FULL_TRAIN = ("train_lm --full", "torch_train_lm.py",
               ["--full", "--steps", str(FULL_TRAIN_STEPS)])
 EXAMPLE_TIMEOUT_S = 600
 MOE_ARCH, MOE_TOKENS = "mixtral-8x22b", (4, 2048)
+# decode attention (phase 17): the kernel against its plain version at the
+# benchmark cells' calls, (label, rows, cache rows T, kv heads, query heads a
+# kv head, head dim, ring, softcap, dtype): yi-6b 128 slots of 1024 + 128
+# keys; mixtral-8x22b 64 slots, its 4096 window making a 1152-key ring;
+# then every attention family's heads at DECODE_ATTN_FAMILY (rows, keys),
+# gemma2's full 4096-key ring with its softcap, and the smoke models' float32
+DECODE_ATTN_CELLS = (
+    ("yi-6b.batched.offline", 128, 1152, 4, 8, 128, False, None, torch.bfloat16),
+    ("mixtral-8x22b.batched.offline", 64, 1152, 8, 6, 128, True, None, torch.bfloat16),
+)
+DECODE_ATTN_FAMILIES = ("granite-34b", "stablelm-3b", "gemma2-27b", "phi3.5-moe-42b-a6.6b",
+                        "phi-3-vision-4.2b", "whisper-tiny", "jamba-1.5-large-398b")
+DECODE_ATTN_FAMILY = (16, 640)
+DECODE_ATTN_EXTRA = (
+    ("gemma2-27b full ring", 4, 4096, 16, 2, 128, True, 50.0, torch.bfloat16),
+    ("smoke float32 (MHA)", 4, 22, 4, 1, 32, False, None, torch.float32),
+    ("smoke float32 (MQA, ring)", 4, 22, 1, 4, 32, True, None, torch.float32),
+)
+#: the cells' serve position for the timed calls: a step half-way through
+#: the 128 generated tokens after the 1024-token padded prompt
+DECODE_ATTN_POS = 1087
+#: output tolerance, kernel against plain.  Both sum the same float32
+#: products in another order: over up to 4096 keys whose |p v| add up to at
+#: most about 5 here, two orders differ by about sqrt(4096) 2**-24 5 = 1.9e-5
+#: absolute (what an output that nearly cancels shows); then both round once
+#: to the output dtype, so a value on a rounding edge differs by one unit in
+#: the last place: 2**-7 of its size in bfloat16 (1e-5 relative in float32)
+DECODE_ATTN_RTOL = {torch.bfloat16: 2.0**-7, torch.float32: 1e-5}
+DECODE_ATTN_ATOL = 2e-5
 
 
 def log(msg: str) -> None:
@@ -903,6 +954,7 @@ def phase_frame_kernels(dev, recorded, stream_framing, joins):
 def reset_launches() -> None:
     pu.reset_launches()
     fp.reset_launches()
+    da.reset_launches()
 
 
 def read_launches() -> dict:
@@ -947,14 +999,27 @@ def phase_serve(dev, wires):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    decode_steps = [0]
+    step_fn = steps_mod.decode_step
+
+    def counted_step(*args, **kwargs):
+        decode_steps[0] += 1
+        return step_fn(*args, **kwargs)
+
     t0 = time.perf_counter()
-    resp = serve.serve_requests(params, cfg, wires, max_new=MAX_NEW, pad_to=PAD_TO,
-                                slots=SLOTS, device=dev)
+    with mock.patch.object(steps_mod, "decode_step", counted_step):
+        resp = serve.serve_requests(params, cfg, wires, max_new=MAX_NEW, pad_to=PAD_TO,
+                                    slots=SLOTS, device=dev)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
     check(launches["unpack_run_aligned"] >= 1, "serve run launched no unpack_run_aligned")
     check(launches["unpack_gather"] >= 1, "serve run launched no unpack_gather")
+    check(decode_steps[0] >= 1 and launches["decode_attention"] == cfg.n_layers * decode_steps[0],
+          f"decode attention launched {launches['decode_attention']} times in "
+          f"{decode_steps[0]} decode steps of {cfg.n_layers} layers")
+    log(f"[serve] decode attention: {launches['decode_attention']} launches == "
+        f"{cfg.n_layers} layers x {decode_steps[0]} decode steps")
     n_out = check_responses(cfg, resp)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[serve] serve_requests: {len(wires)} requests, {n_out} tokens generated in "
@@ -2800,6 +2865,196 @@ def phase_examples(dev, card: str) -> list:
     return [launches]
 
 
+# ---------------------------------------------------------------------------
+# phase 17: decode attention
+# ---------------------------------------------------------------------------
+
+
+def decode_attn_cases() -> list:
+    cases = list(DECODE_ATTN_CELLS)
+    B, T = DECODE_ATTN_FAMILY
+    for arch in DECODE_ATTN_FAMILIES:
+        c = get_config(arch)
+        cases.append((arch, B, T, c.n_kv, c.n_heads // c.n_kv, c.hd, c.window is not None,
+                      c.attn_softcap, torch.bfloat16))
+    return cases + list(DECODE_ATTN_EXTRA)
+
+
+def decode_attn_inputs(case, dev, g, pos=None) -> dict:
+    """Random q, k, v and caches of ``case``; positions drawn over the
+    cache (over three turns of a ring), row 0 at position 0 and, without a
+    ring, the last row past the cache (dropped), unless ``pos`` fixes them."""
+    _, B, T, K, G, D, ring, cap, dtype = case
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    if pos is None:
+        pos_t = torch.randint(T // 2, 3 * T if ring else T, (B,), generator=g, device=dev)
+        pos_t[0] = 0
+        if not ring:
+            pos_t[-1] = T + 3
+    else:
+        pos_t = torch.full((B,), pos, device=dev)
+    # a softcapped model's scores reach the cap: q scaled up
+    return dict(q=rnd(B, 1, K, G, D, scale=40.0 if cap else 1.0), k=rnd(B, K, D),
+                v=rnd(B, K, D), k_cache=rnd(B, T, K, D), v_cache=rnd(B, T, K, D),
+                pos=pos_t.to(torch.int32), window=T if ring else None, logit_cap=cap)
+
+
+def decode_attn_clone(x: dict) -> dict:
+    return {n: t.clone() if isinstance(t, torch.Tensor) else t for n, t in x.items()}
+
+
+def decode_attn_hold(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Kernel output against plain within the stated tolerance; returns the
+    largest |difference|."""
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    tol = DECODE_ATTN_RTOL[got.dtype] * torch.maximum(a.abs(), b.abs()) + DECODE_ATTN_ATOL
+    check(bool(torch.isfinite(a).all()), f"{what}: non-finite output")
+    i = int(torch.argmax(err - tol))
+    check(bool((err <= tol).all()), f"{what}: kernel {float(a.flatten()[i])} against plain "
+          f"{float(b.flatten()[i])}, past the tolerance {float(tol.flatten()[i])}")
+    return float(err.max())
+
+
+def decode_attn_bytes(case, x: dict) -> int:
+    """Bytes one call must move: K and V of the keys below each row's
+    kv_len read once, q read and out written, this step's k and v read and
+    written once."""
+    _, B, T, K, G, D, _, _, dtype = case
+    esize = torch.finfo(dtype).bits // 8
+    keys = int(torch.clamp(x["pos"].long() + 1, max=T).sum())
+    return esize * (2 * K * D * keys + 2 * B * K * G * D + 4 * B * K * D)
+
+
+def decode_attn_flops(case, x: dict) -> int:
+    _, B, T, K, G, D, _, _, _ = case
+    return 4 * G * D * K * int(torch.clamp(x["pos"].long() + 1, max=T).sum())
+
+
+def sdpa_ms(case, x: dict, reps: int):
+    """The library yardstick (never called by the port): PyTorch's
+    ``scaled_dot_product_attention`` over the same cache, the valid keys
+    masked, query heads grouped on their kv head; None where this PyTorch
+    has no ``enable_gqa``."""
+    _, B, T, K, G, D, _, _, _ = case
+    qh = x["q"].reshape(B, K * G, 1, D)
+    kh, vh = x["k_cache"].transpose(1, 2), x["v_cache"].transpose(1, 2)
+    kv_len = torch.clamp(x["pos"].long() + 1, max=T)
+    mask = (torch.arange(T, device=qh.device)[None] < kv_len[:, None])[:, None, None]
+    try:
+        def fn():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=True)
+        fn()
+    except TypeError:
+        return None
+    return time_ms(fn, reps)
+
+
+def decode_attn_time(case, x: dict, reps: int) -> dict:
+    kern = decode_attn_clone(x)
+    ms = time_ms(lambda: da.append_and_attend(**kern), reps)
+    plain = decode_attn_clone(x)
+    plain_ms = time_ms(lambda: da.append_and_attend_plain(**plain), max(2, reps // 10))
+    nbytes = decode_attn_bytes(case, x)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bytes": nbytes,
+            "share": bound_ms / ms, "gflops": decode_attn_flops(case, x) / ms / 1e6,
+            "library_ms": sdpa_ms(case, x, reps)}
+
+
+def decode_attn_graph(dev, g) -> None:
+    """The yi-6b cell's call captured in a CUDA graph, then replayed at
+    other positions with other k/v written into the captured inputs: the
+    replay must equal the plain version at those positions (so the graph
+    reads pos on the device)."""
+    case = DECODE_ATTN_CELLS[0]
+    x = decode_attn_inputs(case, dev, g, pos=DECODE_ATTN_POS)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.append_and_attend(**x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.append_and_attend(**x)
+    fresh = decode_attn_inputs(case, dev, g)
+    for n in ("k", "v", "pos"):
+        x[n].copy_(fresh[n])
+    want_in = decode_attn_clone(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = da.append_and_attend_plain(**want_in)
+    check(torch.equal(x["k_cache"], want_in["k_cache"])
+          and torch.equal(x["v_cache"], want_in["v_cache"]), "graph replay: caches differ")
+    err = decode_attn_hold(out, want, "graph replay")
+    log(f"[decode-attn] CUDA graph: the {case[0]} call captured, replayed at new "
+        f"positions and k/v: caches == plain, max |out - plain| {err:.3g}")
+    del graph
+
+
+def phase_decode_attention(dev, card: str) -> dict:
+    """Phase 17: the decode-attention kernel against its plain version at
+    the cells' calls and every family's heads (caches bit for bit, out
+    within the stated tolerance), inside a CUDA graph, and timed at the
+    cells' calls; returns chip_smoke's kernel rows (main: the yi-6b cell's
+    call at its mid-run position; large: the same call with every row at
+    the full cache)."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    worst = decode_attn_hold_all(dev, g)
+    decode_attn_graph(dev, g)
+    rows = {}
+    for case in DECODE_ATTN_CELLS:
+        for label, pos in (("main", DECODE_ATTN_POS), ("large", case[2] - 1)):
+            x = decode_attn_inputs(case, dev, g, pos=pos)
+            r = decode_attn_time(case, x, reps=100)
+            r["max_abs_err"] = worst
+            lib = f"{r['library_ms']:.4f}" if r["library_ms"] is not None else "n/a"
+            log(f"[decode-attn] {card} | {case[0]} call, every row at position {pos}: "
+                f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bytes']} B; "
+                f"{100 * r['share']:.1f} %), {r['gflops']:.0f} GFLOP/s; plain "
+                f"{r['plain_ms']:.4f} ms; scaled_dot_product_attention {lib} ms")
+            if case is DECODE_ATTN_CELLS[0]:
+                rows[label] = r
+    # the host's share: a step enqueues one call a layer
+    small = (f"{DECODE_ATTN_CELLS[0][0]}, 8 rows", 8) + DECODE_ATTN_CELLS[0][2:]
+    x = decode_attn_inputs(small, dev, g, pos=DECODE_ATTN_POS)
+    kern, plain = decode_attn_clone(x), decode_attn_clone(x)
+    log(f"[cost] decode attention at 8 rows of the {small[0][:-8]} call, host us a call "
+        f"over 500 calls: kernel wrapper {host_us(lambda: da.append_and_attend(**kern), 500):.1f}"
+        f", plain version {host_us(lambda: da.append_and_attend_plain(**plain), 500):.1f}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def decode_attn_hold_all(dev, g) -> float:
+    """Every case of :func:`decode_attn_cases`: one launch, the caches
+    bit for bit the plain version's, out within the tolerance; returns the
+    largest |out - plain|."""
+    worst = 0.0
+    for case in decode_attn_cases():
+        label, B, T, K, G, D, ring, cap, dtype = case
+        x = decode_attn_inputs(case, dev, g)
+        ref = decode_attn_clone(x)
+        before = da.LAUNCHES["decode_attention"]
+        got = da.append_and_attend(**x)
+        torch.cuda.synchronize()
+        check(da.LAUNCHES["decode_attention"] == before + 1, f"{label}: not one launch")
+        want = da.append_and_attend_plain(**ref)
+        check(torch.equal(x["k_cache"], ref["k_cache"])
+              and torch.equal(x["v_cache"], ref["v_cache"]), f"{label}: caches differ")
+        err = decode_attn_hold(got, want, label)
+        worst = max(worst, err)
+        p = da.plan(B, K, G, T, torch.cuda.get_device_properties(dev).multi_processor_count)
+        log(f"[decode-attn] {label}: {B} rows x {T} keys x {K} kv heads x {G} q/kv x {D} "
+            f"{str(dtype).split('.')[-1]} ring {ring} softcap {cap}: plan {p}; caches == "
+            f"plain, max |out - plain| {err:.3g}")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -2826,6 +3081,7 @@ def main() -> int:
     rec_plan, rec_lanes = record_path(dev, rec_wire)
     rows = phase_kernels(dev, main_path_calls(dev, wires, rec_plan, rec_lanes))
     serve_launches, params, cfg, base = phase_serve(dev, wires)
+    rows["decode_attention"] = phase_decode_attention(dev, card)
     fabric_launches, joins = phase_fabric(dev)
     path_launches = [serve_launches, phase_records(rec_plan, rec_lanes, rec_wire, recs),
                      fabric_launches]

@@ -8,8 +8,12 @@ plain PyTorch version; ``framing`` the fabric's frame format and its
 structure pass in plain torch (with the join, ``frame_batch``'s plain
 version); ``ops`` holds the public wrappers
 (``decode_batch_kernel``, ``encode_run``, ``write_headers``,
-``encode_frames_batch``, ``encode_chunks_batch``, ...).  Importing this
-package builds nothing: a kernel is built on its first launch.
+``encode_frames_batch``, ``encode_chunks_batch``, ...);
+``decode_attention`` the decode step's append-and-attend
+(``csrc/decode_attention.cu``, beside its plain version), which
+``models.attention.attn_decode`` calls and which replaces no TPU kernel.
+Importing this package builds nothing: a kernel is built on its first
+launch.
 """
 from .ops import (
     batched_runs_from_plan,

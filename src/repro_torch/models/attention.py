@@ -12,7 +12,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from .common import _param, apply_rope, decode_attention, dense_init, flash_attention
+from ..kernels.decode_attention import append_and_attend
+from .common import _param, apply_rope, dense_init, flash_attention
 
 
 class Attention(torch.nn.Module):
@@ -93,24 +94,19 @@ def attn_decode(
 
     A slot past the end of the cache (``pos >= T``: an idle slot that keeps
     decoding after its sequence was evicted) is dropped, as the reference's
-    ``mode="drop"`` scatter drops it: the row keeps its old K/V.  The drop
-    is a select on the device, so the step needs no host sync."""
+    ``mode="drop"`` scatter drops it: the row keeps its old K/V.  The
+    append and the attention are ``kernels.decode_attention``'s
+    ``append_and_attend``: its plain version on the CPU, one kernel launch
+    on the card; neither needs a host sync."""
     B = x.shape[0]
-    T = cache["k"].shape[1]
     q, k, v = _qkv(p, x, cfg)
     if cfg.use_rope:
         q = apply_rope(q.reshape(B, 1, cfg.n_heads, cfg.hd), pos[:, None], cfg.rope_theta)
         q = q.reshape(B, 1, cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.hd)
         k = apply_rope(k, pos[:, None], cfg.rope_theta)
-    slot = pos % T if window is not None else pos  # ring buffer for SWA
-    keep = (slot < T)[:, None, None]
-    slot = slot.clamp(max=T - 1).long()
-    b_idx = torch.arange(B, device=x.device)
     kc, vc = cache["k"], cache["v"]
-    kc[b_idx, slot] = torch.where(keep, k[:, 0].to(kc.dtype), kc[b_idx, slot])
-    vc[b_idx, slot] = torch.where(keep, v[:, 0].to(vc.dtype), vc[b_idx, slot])
-    kv_len = torch.clamp(pos + 1, max=T) if window is not None else pos + 1
-    out = decode_attention(q, kc, vc, kv_len, logit_cap=cfg.attn_softcap)
+    out = append_and_attend(q, k[:, 0], v[:, 0], kc, vc, pos, window=window,
+                            logit_cap=cfg.attn_softcap)
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p.wo
     return out, {"k": kc, "v": vc}
 

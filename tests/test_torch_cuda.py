@@ -989,3 +989,43 @@ def test_moe_example_all_to_all_on_card_equals_host(cuda_device):
     for g, w in zip(got["received"], want["received"]):
         assert [(s, e, ids.tolist()) for s, e, ids in g] == [
             (s, e, ids.tolist()) for s, e, ids in w]
+
+
+@pytest.mark.parametrize("G,K,D,T,ring,cap,dtype", [
+    (8, 4, 128, 160, False, None, torch.bfloat16),  # yi-6b's heads
+    (6, 8, 128, 96, True, None, torch.bfloat16),  # mixtral's, in a ring
+    (48, 1, 128, 70, False, None, torch.bfloat16),  # granite's MQA: six head groups
+    (1, 32, 80, 64, False, None, torch.bfloat16),  # stablelm's MHA
+    (2, 16, 128, 300, True, 50.0, torch.bfloat16),  # gemma2's ring and softcap
+    (4, 1, 32, 22, False, None, torch.float32),  # a smoke model's
+])
+def test_decode_attention_kernel_equals_plain(cuda_device, G, K, D, T, ring, cap, dtype):
+    """One launch of ``kernels.decode_attention`` against its plain version
+    at the registry's head shapes: the caches bit for bit after the append
+    (a row past the cache keeps its old K/V), out within the float32 sums'
+    order (2e-5) and one rounding to the output dtype."""
+    from repro_torch.kernels import decode_attention as da
+
+    g = torch.Generator(device=cuda_device).manual_seed(G * K + D)
+    B = 6
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=cuda_device) * scale).to(dtype)
+
+    pos = torch.randint(T // 2, 3 * T if ring else T, (B,), generator=g, device=cuda_device)
+    pos[0] = 0
+    if not ring:
+        pos[-1] = T + 2
+    x = dict(q=rnd(B, 1, K, G, D, scale=40.0 if cap else 1.0), k=rnd(B, K, D), v=rnd(B, K, D),
+             k_cache=rnd(B, T, K, D), v_cache=rnd(B, T, K, D), pos=pos.to(torch.int32),
+             window=T if ring else None, logit_cap=cap)
+    ref = {n: t.clone() if isinstance(t, torch.Tensor) else t for n, t in x.items()}
+    before = da.LAUNCHES["decode_attention"]
+    got = da.append_and_attend(**x)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES["decode_attention"] == before + 1
+    want = da.append_and_attend_plain(**ref)
+    assert torch.equal(x["k_cache"], ref["k_cache"]) and torch.equal(x["v_cache"], ref["v_cache"])
+    rtol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+    a, b = got.float(), want.float()
+    assert bool(((a - b).abs() <= rtol * torch.maximum(a.abs(), b.abs()) + 2e-5).all())

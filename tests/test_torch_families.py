@@ -175,6 +175,29 @@ def test_prefill_then_decode(models):
             _close(tlayer[k], jlayer[k])
 
 
+def test_decode_on_cpu_takes_the_plain_attention(models):
+    """CPU tensors: a decode step runs the plain append-and-attend of
+    ``kernels.decode_attention`` once for each attention layer (none for
+    xlstm) and the kernel's launch count stays where it was; the step's
+    logits still match the reference's."""
+    from unittest import mock
+
+    from repro_torch.kernels import decode_attention as da
+
+    jcfg, jparams, cfg, tparams = models
+    toks = _tokens(cfg, (2, 6), 3)
+    jl, jc = j_prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)}, cache_len=9)
+    _, tc = prefill(tparams, cfg, {"tokens": torch.from_numpy(toks)}, cache_len=9)
+    before = dict(da.LAUNCHES)
+    with mock.patch.object(da, "append_and_attend_plain",
+                           wraps=da.append_and_attend_plain) as plain:
+        tl, _ = decode_step(tparams, cfg, tc, torch.from_numpy(toks[:, -1:]))
+    assert plain.call_count == sum(s == "attn" for s, _ in t_model.layer_plan(cfg))
+    assert da.LAUNCHES == before
+    jl, _ = j_decode_step(jparams, jcfg, jc, jnp.asarray(toks[:, -1:]))
+    _close(tl, jl)
+
+
 def test_scan_layers_forward(models):
     """``scan_layers=True``: the same logits, and the reference's ``aux``
     (the last period position's balance loss, averaged over periods)."""

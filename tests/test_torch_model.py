@@ -120,3 +120,160 @@ def test_multimodal_families_initialise(arch):
         t.shape for layer in want["layers"] for t in layer.values()]
     assert [tuple(t.shape) for kv in got.get("enc_kv", ()) for t in kv] == [
         t.shape for kv in want.get("enc_kv", ()) for t in kv]
+
+
+# ---------------------------------------------------------------------------
+# attn_decode's tail: the append and the attention (kernels.decode_attention)
+# ---------------------------------------------------------------------------
+
+#: query heads a kv head -> kv heads: MHA (stablelm), mixtral's 48/8 as 6,
+#: yi's GQA, granite's MQA
+DECODE_GROUPS = {1: 4, 6: 2, 8: 2, 48: 1}
+DECODE_T = 12
+#: each row at its own position: one key, a middle one, the cache's last
+#: slot, and one past the cache (dropped: the row keeps its old K/V); in a
+#: ring the later ones wrap to slots 0 and 5
+DECODE_POS = {"cache": [0, 5, 11, 14], "ring": [3, 11, 12, 29], "softcap": [0, 6, 11, 19]}
+
+
+def _decode_configs(G: int, mode: str):
+    changes = dict(n_heads=G * DECODE_GROUPS[G], n_kv=DECODE_GROUPS[G], head_dim=16)
+    if mode == "ring":
+        changes["window"] = DECODE_T
+    if mode == "softcap":
+        changes["attn_softcap"] = 50.0
+    jcfg = dataclasses.replace(j_smoke_config(j_get_config("yi-6b")), **changes)
+    cfg = dataclasses.replace(smoke_config(get_config("yi-6b")), **changes)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    return jcfg, cfg
+
+
+def _decode_inputs(cfg, mode: str, seed: int = 0):
+    """One attention layer's parameters (a softcapped mode's wq scaled up so
+    its scores reach the cap), x, old caches and positions, as numpy."""
+    rng = np.random.default_rng(seed)
+    d, hd, nq, nkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv
+    p = {name: rng.normal(0, d ** -0.5, shape).astype(np.float32)
+         for name, shape in (("wq", (d, nq * hd)), ("wk", (d, nkv * hd)),
+                             ("wv", (d, nkv * hd)), ("wo", (nq * hd, d)))}
+    if mode == "softcap":
+        p["wq"] *= 60.0
+    B = len(DECODE_POS[mode])
+    x = rng.normal(size=(B, 1, d)).astype(np.float32)
+    kc, vc = (rng.normal(size=(B, DECODE_T, nkv, hd)).astype(np.float32) for _ in range(2))
+    return p, x, kc, vc, np.asarray(DECODE_POS[mode], np.int32)
+
+
+def _decode_torch(cfg, p, x, kc, vc, pos, window):
+    from repro_torch.models.attention import Attention, attn_decode
+
+    attn = Attention(cfg, torch.float32, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, w in p.items():
+            getattr(attn, name).copy_(torch.from_numpy(w))
+        cache = {"k": torch.from_numpy(kc.copy()), "v": torch.from_numpy(vc.copy())}
+        out, cache = attn_decode(attn, torch.from_numpy(x), cfg, cache, torch.from_numpy(pos),
+                                 window=window)
+    return out, cache
+
+
+@pytest.mark.parametrize("mode", ["cache", "ring", "softcap"])
+@pytest.mark.parametrize("G", sorted(DECODE_GROUPS))
+def test_attn_decode_append_and_attend_matches_reference(G, mode):
+    """The plain append-and-attend (the CPU path of ``attn_decode``) against
+    the reference's ``attn_decode``: the output, both caches after the
+    append, and the row past the cache unchanged on both sides."""
+    from repro.models.attention import attn_decode as j_attn_decode
+
+    jcfg, cfg = _decode_configs(G, mode)
+    p, x, kc, vc, pos = _decode_inputs(cfg, mode)
+    window = DECODE_T if mode == "ring" else None
+    jout, jcache = j_attn_decode({k: jnp.asarray(w) for k, w in p.items()}, jnp.asarray(x), jcfg,
+                                 {"k": jnp.asarray(kc), "v": jnp.asarray(vc)}, jnp.asarray(pos),
+                                 window=window)
+    tout, tcache = _decode_torch(cfg, p, x, kc, vc, pos, window)
+    _close(tout, jout)
+    for name, old in (("k", kc), ("v", vc)):
+        _close(tcache[name], jcache[name])
+        slots = pos % DECODE_T if window else pos
+        for row, slot in enumerate(slots):
+            kept = np.ones(DECODE_T, bool)
+            if slot < DECODE_T:
+                kept[slot] = False
+            np.testing.assert_array_equal(tcache[name][row].numpy()[kept], old[row][kept])
+            np.testing.assert_array_equal(np.asarray(jcache[name][row])[kept], old[row][kept])
+    if mode == "softcap":  # the cap binds: the uncapped scores pass it
+        q = (x[:, 0] @ p["wq"]).reshape(len(pos), -1, cfg.hd)
+        assert np.abs(q @ kc[0, 0, 0] / np.sqrt(cfg.hd)).max() > jcfg.attn_softcap
+
+
+@pytest.mark.parametrize("G", sorted(DECODE_GROUPS))
+def test_attn_decode_on_cpu_takes_the_plain_path(G):
+    """CPU tensors: ``attn_decode`` runs the plain append-and-attend once and
+    the kernel's launch count stays where it was (at zero on a host with no
+    card)."""
+    from unittest import mock
+
+    from repro_torch.kernels import decode_attention as da
+
+    _, cfg = _decode_configs(G, "cache")
+    before = dict(da.LAUNCHES)
+    with mock.patch.object(da, "append_and_attend_plain",
+                           wraps=da.append_and_attend_plain) as plain:
+        out, cache = _decode_torch(cfg, *_decode_inputs(cfg, "cache"), None)
+    assert plain.call_count == 1
+    assert da.LAUNCHES == before
+    if not torch.cuda.is_available():
+        assert da.LAUNCHES == {"decode_attention": 0}
+    assert tuple(out.shape) == (len(DECODE_POS["cache"]), 1, cfg.d_model)
+
+
+@pytest.mark.parametrize("B,K,G,T,want", [
+    (128, 4, 8, 1152, dict(gc=8, gc_max=8, n_groups=1, n_splits=1, split_len=1152)),
+    (64, 8, 6, 1152, dict(gc=6, gc_max=6, n_groups=1, n_splits=1, split_len=1152)),
+    (16, 1, 48, 640, dict(gc=8, gc_max=8, n_groups=6, n_splits=3, split_len=256)),
+    (4, 16, 2, 4096, dict(gc=2, gc_max=2, n_groups=1, n_splits=5, split_len=832)),
+    (4, 4, 1, 22, dict(gc=1, gc_max=1, n_groups=1, n_splits=1, split_len=64)),
+    (2, 4, 3, 1152, dict(gc=3, gc_max=4, n_groups=1, n_splits=18, split_len=64)),
+])
+def test_decode_attention_plan(B, K, G, T, want):
+    """The kernel's launch shape from the call's on a 132-SM card: head
+    groups of at most 8 in the narrowest built width, splits while the
+    blocks stay under two an SM, no split shorter than a tile a warp."""
+    from repro_torch.kernels import decode_attention as da
+
+    got = da.plan(B, K, G, T, 132)
+    assert got == want
+    assert got["n_splits"] * got["split_len"] >= T > (got["n_splits"] - 1) * got["split_len"]
+    assert got["split_len"] % (da.TILE * da.WARPS) == 0 or got["n_splits"] == 1
+
+
+@pytest.mark.parametrize("bad", ["k", "pos", "q_dtype", "head_dim", "cache_view"])
+def test_decode_attention_rejects_what_the_kernel_does_not_take(bad):
+    """The kernel wrapper's checks (run before any launch): a k of another
+    shape, a pos of another length, q in another dtype than the caches, a
+    head dim that is no multiple of 16, a cache that is a strided view."""
+    from repro_torch.kernels import decode_attention as da
+
+    B, T, K, G, D = 3, 10, 2, 4, 32
+    if bad == "head_dim":
+        D = 24
+    x = dict(q=torch.zeros(B, 1, K, G, D, dtype=torch.bfloat16),
+             k=torch.zeros(B, K, D, dtype=torch.bfloat16),
+             v=torch.zeros(B, K, D, dtype=torch.bfloat16),
+             k_cache=torch.zeros(B, T, K, D, dtype=torch.bfloat16),
+             v_cache=torch.zeros(B, T, K, D, dtype=torch.bfloat16),
+             pos=torch.zeros(B, dtype=torch.int32))
+    if bad != "head_dim":
+        assert da._check(**x) == (B, T, K, G, D)
+    if bad == "k":
+        x["k"] = x["k"][:, :1]
+    elif bad == "pos":
+        x["pos"] = x["pos"][:2]
+    elif bad == "q_dtype":
+        x["q"] = x["q"].float()
+    elif bad == "cache_view":
+        x["k_cache"] = torch.zeros(B, T, K, 2 * D, dtype=torch.bfloat16)[..., :D]
+        x["v_cache"] = x["k_cache"]
+    with pytest.raises(ValueError):
+        da._check(**x)
