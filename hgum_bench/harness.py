@@ -36,7 +36,7 @@ from unittest import mock
 import torch
 
 from . import traffic
-from .cells import Cell
+from .cells import Cell, load_family
 from .devtrace import DeviceTrace
 from .reference import check, weights
 from .reference.codec import decode_response
@@ -102,25 +102,16 @@ class Run:
         return [c for c in self.calls if not c.profiled] or self.calls
 
 
-def program_config(config: dict):
+def program_config(config: dict, family=None):
     """The program's ``ModelConfig``: the registry entry of ``arch`` with
-    every number of the configuration file put in."""
+    the overrides of ``family`` (by default ``cells.load_family``'s for
+    ``config``)."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
 
-    m = weights.dims(config)
-    kw = dict(n_layers=m["L"], d_model=m["d"], n_heads=m["nq"], n_kv=m["nkv"],
-              head_dim=config.get("head_dim"), d_ff=m["ff"], vocab=m["V"],
-              norm="rmsnorm", norm_eps=m["eps"], rope_theta=m["theta"], act="swiglu",
-              tie_embeddings=m["tied"], window=m["window"], dtype=config["torch_dtype"],
-              moe_experts=m["E"], local_global_alternate=False, attn_softcap=None,
-              final_softcap=None, embed_scale=False, sandwich_norm=False,
-              layer_pattern="attn", family="lm")
-    if m["E"]:
-        kw.update(moe_topk=m["k"], capacity_factor=m["cf"], moe_dff=None, moe_every=1,
-                  moe_offset=0)
-    return replace(get_config(config["arch"]), **kw)
+    family = family or load_family(config)
+    return replace(get_config(config["arch"]), **family.program_overrides(config))
 
 
 def program_params(cfg, W: Dict[str, torch.Tensor]):
@@ -222,8 +213,7 @@ def _window(run: Run, plane, seconds: float) -> None:
 
 def _count_work(run: Run) -> None:
     """Tokens delivered and useful FLOPs of each call (after the window)."""
-    from .flops import sequence_flops
-
+    sequence_flops = run.cell.family.sequence_flops
     for c in run.calls:
         if run.cell.plane.STREAMED:
             c.tokens = sum(len(v) for v in c.stream_tokens.values())
@@ -257,8 +247,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     dev = torch.device(device or "cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # the reference's float32 is float32
     torch.backends.cudnn.allow_tf32 = False
-    cfg = program_config(cell.config)
-    W = weights.make(cell.config, seed, dev)
+    cfg = program_config(cell.config, cell.family)
+    W = weights.make(cell.config, seed, dev, cell.family.spec)
     params = program_params(cfg, W)
     run = Run(cell, dev, seed, trace)
     plane = cell.plane.Plane(cell, cfg, params, dev, trace)
@@ -305,7 +295,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     calls = [{"reqs": c.reqs, "responses": c.responses,
               "streamed": _streamed(c) if cell.plane.STREAMED else None} for c in run.calls]
     verdict = check.judge(cell.config, cell.mix, cell.workload, calls, seed, dev,
-                          control=control and control_quant)
+                          control=control and control_quant, family=cell.family)
     ok = all(v <= lim for v, lim in verdict["checks"].values())
     device_info = {
         "platform": "gpu" if dev.type == "cuda" else dev.type,

@@ -12,11 +12,11 @@ what the timed path produced:
   reached the ingress, in step order, equal its response wire's output,
   and every stream had a first token;
 * the logit gaps: a sample of served sequences, drawn from the seed with
-  the longest prompt in it, runs through the float32 reference
-  (``model.forward``) as its padded prompt followed by its served tokens;
-  at each served position, the reference's best logit minus the logit of
-  the token the program served.  A cell's ``check`` names the statistics
-  it holds to a limit (``STATS``): ``logit_gap``, the widest gap;
+  the longest prompt in it, runs through the float32 reference (the
+  family's ``forward``) as its padded prompt followed by its served
+  tokens; at each served position, the reference's best logit minus the
+  logit of the token the program served.  A cell's ``check`` names the
+  statistics it holds to a limit (``STATS``): ``logit_gap``, the widest gap;
   ``logit_gap_seq_median``, the median over sequences of each sequence's
   mean gap; ``logit_gap_seq_third``, the third largest of those means.
   An MoE configuration needs every sequence of one call (its capacity
@@ -39,7 +39,7 @@ import torch
 
 from . import weights
 from .codec import decode_response
-from .model import forward, moe_capacity
+from .model import moe_capacity
 
 #: sequences of one reference forward (dense configurations)
 BLOCK = 8
@@ -91,12 +91,14 @@ def _wire_ok(wire, rid: int, prompts, max_new: int, vocab: int) -> Optional[List
 
 
 def judge(config: dict, mix: dict, workload: dict, calls: Sequence[dict], seed: int,
-          device, control: bool = False) -> Dict[str, object]:
+          device, *, family, control: bool = False) -> Dict[str, object]:
     """``calls``: each ``{"reqs": [(rid, prompts)], "responses": [wire],
-    "streamed": {(m, j): [token, ...]} or None}``.  Returns the compared
-    numbers with their limits (``checks``), the failed request count, the
-    sampled sequence count and, with ``control``, the control's gap."""
-    dm = weights.dims(config)
+    "streamed": {(m, j): [token, ...]} or None}``; ``family``, the
+    configuration's (``cells.load_family``), gives ``dims``, ``spec`` and
+    ``forward``.  Returns the compared numbers with their limits
+    (``checks``), the failed request count, the sampled sequence count
+    and, with ``control``, the control's gap."""
+    dm = family.dims(config)
     pad_to, max_new = int(mix["pad_to"]), int(mix["max_new"])
     lim = workload["check"]
     bad = mismatch = 0
@@ -145,7 +147,7 @@ def judge(config: dict, mix: dict, workload: dict, calls: Sequence[dict], seed: 
 
     gaps, ctl = [], []
     if blocks:
-        W = weights.make(config, seed, device)
+        W = weights.make(config, seed, device, family.spec)
         for blk in blocks:
             toks = np.zeros((len(blk), pad_to + max_new - 1), np.int64)
             served = np.zeros((len(blk), max_new), np.int64)
@@ -157,11 +159,12 @@ def judge(config: dict, mix: dict, workload: dict, calls: Sequence[dict], seed: 
                 served[r] = out
             t = torch.from_numpy(toks).to(device)
             s = torch.from_numpy(served).to(device)
-            logits = forward(W, config, t, pad_to - 1, groups)
+            logits = family.forward(W, config, t, pad_to - 1, groups)
             best = logits.max(-1).values
             gaps.append((best - logits.gather(-1, s[..., None])[..., 0]).cpu())
             if control:
-                low = forward(W, config, t, pad_to - 1, groups, quant="fp8").argmax(-1)
+                low = family.forward(W, config, t, pad_to - 1, groups,
+                                     quant="fp8").argmax(-1)
                 ctl.append((best - logits.gather(-1, low[..., None])[..., 0]).cpu())
             del logits, best
         del W

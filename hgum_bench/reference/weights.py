@@ -46,6 +46,25 @@ def dims(cfg: dict) -> dict:
     }
 
 
+def decoder_overrides(cfg: dict) -> dict:
+    """The keyword arguments that make the program's ``ModelConfig`` this
+    decoder: the Llama/Mixtral block with every number of the
+    configuration file put in (the default family's
+    ``program_overrides``)."""
+    m = dims(cfg)
+    kw = dict(n_layers=m["L"], d_model=m["d"], n_heads=m["nq"], n_kv=m["nkv"],
+              head_dim=cfg.get("head_dim"), d_ff=m["ff"], vocab=m["V"],
+              norm="rmsnorm", norm_eps=m["eps"], rope_theta=m["theta"], act="swiglu",
+              tie_embeddings=m["tied"], window=m["window"], dtype=cfg["torch_dtype"],
+              moe_experts=m["E"], local_global_alternate=False, attn_softcap=None,
+              final_softcap=None, embed_scale=False, sandwich_norm=False,
+              layer_pattern="attn", family="lm")
+    if m["E"]:
+        kw.update(moe_topk=m["k"], capacity_factor=m["cf"], moe_dff=None, moe_every=1,
+                  moe_offset=0)
+    return kw
+
+
 def spec(cfg: dict) -> List[Tuple[str, Tuple[int, ...], str, float]]:
     """(name, shape, dtype, std) of every weight; std 0 means zeros."""
     m = dims(cfg)
@@ -89,10 +108,11 @@ def seed_of(seed: int, stream: int) -> int:
     return int(ss.generate_state(1, np.uint64)[0] % (1 << 63))
 
 
-def make(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """Every weight of ``spec(cfg)``, on ``device``, from ``seed``."""
+def make(cfg: dict, seed: int, device, spec_of=spec) -> Dict[str, torch.Tensor]:
+    """Every weight of ``spec_of(cfg)`` (a family's ``spec``; the default
+    decoder's by default), on ``device``, from ``seed``."""
     gen = torch.Generator(device=device).manual_seed(seed_of(seed, 1))
-    leaves = spec(cfg)
+    leaves = spec_of(cfg)
     flats = {}
     for dt in sorted({dt for _, _, dt, std in leaves if std}):
         n = sum(math.prod(s) for _, s, d2, std in leaves if d2 == dt and std)

@@ -26,6 +26,14 @@ CONFIGS = {
                  "sliding_window": None, "tie_word_embeddings": False,
                  "torch_dtype": "float32", "capacity_factor": 1.0},
 }
+#: MoE on odd layers only, through the test family ``tiny_interleaved``
+CONFIGS["tiny-interleaved"] = {
+    "name": "tiny-interleaved", "family": "tiny_interleaved", "arch": "mixtral-8x22b",
+    "hidden_size": 64, "intermediate_size": 96, "num_attention_heads": 4,
+    "num_key_value_heads": 2, "num_hidden_layers": 4, "num_experts": 4,
+    "num_experts_per_tok": 2, "expert_layer_period": 2, "expert_layer_offset": 1,
+    "vocab_size": 256, "rms_norm_eps": 1e-5, "rope_theta": 10000.0, "sliding_window": None,
+    "tie_word_embeddings": False, "torch_dtype": "float32", "capacity_factor": 1.0}
 CONFIGS["tiny-dense-bf16"] = dict(CONFIGS["tiny-dense"], name="tiny-dense-bf16",
                                   torch_dtype="bfloat16", hidden_size=256,
                                   intermediate_size=512, num_hidden_layers=4)
@@ -58,6 +66,10 @@ WORKLOADS = {
     "tiny-moe.grouped": {"config": "tiny-moe", "traffic": "tiny-long", "plane": "batched",
                          "wires_per_call": 64, "slots": 128, "plane_args": {},
                          "end_to_end": _E2E, "per_layer": ["decode_step_ms"]},
+    "tiny-interleaved.batched": {"config": "tiny-interleaved", "plane": "batched",
+                                 "wires_per_call": 4, "slots": 8, "plane_args": {},
+                                 "end_to_end": _E2E,
+                                 "per_layer": ["decode_step_ms", "moe_device_share"]},
     "tiny-dense-bf16.batched": {"config": "tiny-dense-bf16", "plane": "batched",
                                 "wires_per_call": 3, "slots": 6, "plane_args": {},
                                 "end_to_end": _E2E, "per_layer": ["decode_step_ms"],
@@ -65,11 +77,18 @@ WORKLOADS = {
 }
 
 
+#: the test family's source; a test tree holds it as ``families/<name>.py``
+FAMILY = Path(__file__).with_name("tiny_interleaved.py")
+
+
 def make_tree(tmp: Path) -> Path:
-    """The benchmark's planes, metrics and mixes, plus the tiny files."""
+    """The benchmark's planes, metrics and mixes, plus the tiny files and
+    the test family."""
     root = tmp / "bench"
     for d in ("planes", "metrics", "end_to_end", "traffic", "configs", "workloads"):
         shutil.copytree(BENCH / d, root / d)
+    (root / "families").mkdir()
+    shutil.copy(FAMILY, root / "families" / FAMILY.name)
     for name, cfg in CONFIGS.items():
         (root / "configs" / f"{name}.json").write_text(json.dumps(cfg))
     for mix in (MIX, LONG_MIX):
