@@ -10,6 +10,8 @@ import shutil
 import subprocess
 import sys
 from dataclasses import replace
+from pathlib import Path
+from typing import List
 from unittest import mock
 
 import pytest
@@ -20,18 +22,21 @@ from hgum_bench.reference import model as ref_model
 from hgum_bench.reference import weights
 
 from . import test_hgum_bench_harness as harness_tests
-from .test_hgum_bench_files import _digest
-from .tiny import BENCH, CONFIGS, FAMILY, SRC, make_tree, run
-
-SHIPPED = sorted(p.stem for p in (BENCH / "configs").glob("*.json"))
-DEFAULT = SHIPPED + ["tiny-dense", "tiny-moe", "tiny-dense-bf16"]
-CELL = "tiny-interleaved.batched"
+from .test_hgum_bench_files import WAITING, _digest, check_benchmark
+from .tiny import BENCH, CONFIGS, FAMILY, SRC, WORKLOADS, copy_bench, make_tree, run
 
 
 def _config(name: str) -> dict:
     if name in CONFIGS:
         return json.loads(json.dumps(CONFIGS[name]))
     return json.loads((BENCH / "configs" / f"{name}.json").read_text())
+
+
+SHIPPED = sorted(p.stem for p in (BENCH / "configs").glob("*.json"))
+#: the shipped configurations that name no family, and the tiny ones
+DEFAULT = [n for n in SHIPPED if "family" not in _config(n)] + [
+    "tiny-dense", "tiny-moe", "tiny-dense-bf16"]
+CELL = "tiny-interleaved.batched"
 
 
 def _program_config_before_families(config: dict):
@@ -63,9 +68,14 @@ def family(root):
     return cells.load_family(CONFIGS["tiny-interleaved"], root)
 
 
-@pytest.mark.parametrize("name", DEFAULT)
-def test_default_family_is_todays_code(name):
-    config = _config(name)
+def _cells_of(config: dict, root: Path) -> List[str]:
+    return [p.stem for p in sorted((root / "workloads").glob("*.json"))
+            if json.loads(p.read_text())["config"] == config["name"]]
+
+
+def check_default_family(config: dict, root: Path = BENCH) -> None:
+    """A configuration that names no family resolves to today's five
+    objects, and so does every cell of it in ``root``."""
     assert "family" not in config
     fam = cells.load_family(config)
     assert fam.dims is weights.dims
@@ -76,20 +86,46 @@ def test_default_family_is_todays_code(name):
     before = _program_config_before_families(config)
     assert harness.program_config(config) == before
     assert harness.program_config(config, fam) == before
-    if name in SHIPPED:
-        for wl in (BENCH / "workloads").glob(f"{name}.*.json"):
-            got = cells.load(wl.stem).family
-            assert (got.dims, got.spec, got.forward, got.sequence_flops,
-                    got.program_overrides) == (fam.dims, fam.spec, fam.forward,
-                                               fam.sequence_flops, fam.program_overrides)
+    for name in _cells_of(config, root):
+        got = cells.load(name, root).family
+        assert (got.dims, got.spec, got.forward, got.sequence_flops,
+                got.program_overrides) == (fam.dims, fam.spec, fam.forward,
+                                           fam.sequence_flops, fam.program_overrides)
+
+
+def check_family(config: dict, root: Path = BENCH) -> None:
+    """A configuration that names a family loads ``families/<family>.py``
+    of ``root`` with the five functions, and every cell of it carries that
+    module."""
+    path = str(root / "families" / f"{config['family']}.py")
+    fam = cells.load_family(config, root)
+    assert fam.__file__ == path
+    assert all(callable(getattr(fam, f)) for f in cells.FAMILY_FUNCTIONS)
+    for name in _cells_of(config, root):
+        got = cells.load(name, root).family
+        assert got.__file__ == path
+        assert all(callable(getattr(got, f)) for f in cells.FAMILY_FUNCTIONS)
+
+
+@pytest.mark.parametrize("name", DEFAULT)
+def test_default_family_is_todays_code(name):
+    check_default_family(_config(name))
+
+
+def test_shipped_family_configurations_load():
+    """One test over the shipped configurations that name a family (none
+    yet: an empty parametrisation would skip, and a skip is no pass); and
+    no shipped family file is left that no configuration names."""
+    named = [c for c in map(_config, SHIPPED) if "family" in c]
+    assert {c["family"] for c in named} == {p.stem for p in (BENCH / "families").glob("*.py")}
+    for config in named:
+        check_family(config)
 
 
 def test_a_new_family_is_a_new_file(tmp_path):
-    root = tmp_path / "bench"
-    for d in ("planes", "metrics", "end_to_end", "traffic", "configs", "workloads"):
-        shutil.copytree(BENCH / d, root / d)
+    root = copy_bench(tmp_path)
     before = _digest(root)
-    (root / "families").mkdir()
+    (root / "families").mkdir(exist_ok=True)
     shutil.copy(FAMILY, root / "families" / "tiny_interleaved.py")
     (root / "configs" / "tiny-interleaved.json").write_text(json.dumps(CONFIGS["tiny-interleaved"]))
     wl = dict(json.loads((root / "workloads" / "mixtral-8x22b.batched.offline.json").read_text()),
@@ -105,6 +141,66 @@ def test_a_new_family_is_a_new_file(tmp_path):
     assert set(after) - set(before) == {"families/tiny_interleaved.py",
                                         "configs/tiny-interleaved.json",
                                         f"workloads/{wl['name']}.json"}
+
+
+#: the rehearsal's per-layer reader: generated tokens per measured call
+READER = """UNIT = "tokens"
+
+
+def read(run):
+    calls = run.measured_calls()
+    return sum(c.tokens for c in calls) / len(calls) if calls else None
+"""
+
+
+def test_a_family_configuration_and_its_cell_are_new_files_and_entries(tmp_path):
+    """What a PR that adds a configuration with a family of its own, its
+    cell and a reader writes, at a tiny size: new files, entries appended
+    to a copy of BENCHMARK.json, and the new cell's name appended to two
+    readers' lists.  Every check of the shipped benchmark holds on the
+    result, no file that was there changes, and the cell runs correct."""
+    root = make_tree(tmp_path)
+    before = _digest(root)
+    bench = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
+    config = dict(CONFIGS["tiny-interleaved"], name="tiny-hybrid", family="tiny_hybrid")
+    cell, metric = "tiny-hybrid.batched", "tokens_per_call"
+    why = "a tiny hybrid: MoE on odd layers, 4 wires x 2 prompts of 3-16 tokens a call, 8 slots"
+    per_layer = ["device_idle_share", "decode_step_ms", metric]
+    wl = dict(json.loads((root / "workloads" / f"{CELL}.json").read_text()), name=cell,
+              config=config["name"], why=why, per_layer=per_layer)
+    shutil.copy(FAMILY, root / "families" / "tiny_hybrid.py")
+    (root / "configs" / "tiny-hybrid.json").write_text(json.dumps(config))
+    (root / "workloads" / f"{cell}.json").write_text(json.dumps(wl))
+    (root / "metrics" / f"{metric}.py").write_text(READER)
+    bench["configs"].append({"name": config["name"], "source": "a CPU test",
+                             "file": f"{BENCH.name}/configs/tiny-hybrid.json",
+                             "reduced": [], "why": "MoE on odd layers"})
+    bench["workloads"].append({"name": cell, "config": config["name"], "traffic": wl["traffic"],
+                               "chips": 1, "why": why})
+    bench["per_layer"].append({"name": metric, "unit": "tokens", "better": "higher",
+                               "source": "program_counter", "layer": "a CPU test",
+                               "moves": "tokens_per_s", "workloads": [cell]})
+    for m in bench["per_layer"]:
+        if m["name"] in per_layer[:2]:
+            m["workloads"].append(cell)
+
+    check_benchmark(bench, root, WAITING | set(WORKLOADS))
+    for path in sorted((root / "configs").glob("*.json")):
+        other = json.loads(path.read_text())
+        if "family" not in other:
+            check_default_family(other, root)
+    check_family(config, root)
+    after = _digest(root)
+    assert {k: v for k, v in after.items() if k in before} == before
+    assert set(after) - set(before) == {
+        "families/tiny_hybrid.py", "configs/tiny-hybrid.json", f"workloads/{cell}.json",
+        f"metrics/{metric}.py"}
+    for trace in (False, True):
+        out = run(root, cell, seed=2 ** 31 + 17, trace=trace, seconds=0.2)
+        assert out["correct"] and out["failed"] == 0 and out["attempted"] > 0
+        # the device's idle share reads nothing on the CPU
+        assert set(out["metrics"]) == ({"decode_step_ms", metric} if trace
+                                       else {"tokens_per_s", "setup_s"})
 
 
 def test_a_family_lacking_a_function_is_refused(tmp_path):

@@ -11,6 +11,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from typing import Iterable
 
 import numpy as np
 import pytest
@@ -18,21 +19,39 @@ import pytest
 from hgum_bench import cells, flops, traffic
 from hgum_bench.reference import codec
 
-from .tiny import BENCH, SRC, make_tree
+from .tiny import BENCH, SRC, copy_bench, make_tree
 
 CHECKOUT = BENCH.parent
 CELLS = sorted(p.stem for p in (BENCH / "workloads").glob("*.json"))
+#: the cells that accepted PRs measure, first in BENCHMARK.json and in this
+#: order.  Only a `benchmark` PR changes it.
+ACCEPTED = ["mixtral-8x22b.batched.offline", "yi-6b.batched.offline"]
+#: cells whose files are there and run but that wait for a bound (PERF.md,
+#: Open questions).  Only a `benchmark` PR changes it.
+WAITING = {"yi-6b.stream.chat"}
 
 
-def test_benchmark_json_names_the_cells_in_order():
-    bench = json.loads((CHECKOUT / "BENCHMARK.json").read_text())
-    assert [w["name"] for w in bench["workloads"]] == [
-        "mixtral-8x22b.batched.offline", "yi-6b.batched.offline"]
-    # the chat cell's files are there, runnable, and wait for a bound
-    assert sorted([w["name"] for w in bench["workloads"]] + ["yi-6b.stream.chat"]) == CELLS
-    assert {c["name"] for c in bench["configs"]} == {p.stem for p in (BENCH / "configs").glob("*.json")}
+def check_benchmark(bench: dict, root: Path, unlisted: Iterable[str] = WAITING) -> None:
+    """``bench``, the dict of BENCHMARK.json, against the benchmark's tree
+    ``root``: the accepted cells first and in order; every workload file a
+    cell of ``bench`` or one of ``unlisted``, once; every configuration
+    file in ``bench`` or used by an unlisted cell; each cell's
+    configuration, traffic, chips, why and metrics as its files name them;
+    and every cell that reports a per-layer metric reports what it moves."""
+    listed = [w["name"] for w in bench["workloads"]]
+    assert listed[:len(ACCEPTED)] == ACCEPTED, f"the accepted cells first, in order: {listed}"
+    unlisted = sorted(unlisted)
+    files = sorted(p.stem for p in (root / "workloads").glob("*.json"))
+    assert sorted(listed + unlisted) == files, f"a workload file each, once: {listed} {files}"
+    names = [c["name"] for c in bench["configs"]]
+    assert len(set(names)) == len(names) and set(names) == {w["config"] for w in bench["workloads"]}
+    waiting = {cells.load(n, root).workload["config"] for n in unlisted}
+    assert set(names) | waiting == {p.stem for p in (root / "configs").glob("*.json")}
+    for c in bench["configs"]:
+        assert c["file"] == f"{BENCH.name}/configs/{c['name']}.json"
+        assert (root / "configs" / f"{c['name']}.json").is_file()
     for w in bench["workloads"]:
-        cell = cells.load(w["name"])
+        cell = cells.load(w["name"], root)
         assert (w["config"], w["traffic"], w["chips"], w["why"]) == (
             cell.workload["config"], cell.workload["traffic"], cell.workload["chips"],
             cell.workload["why"])
@@ -42,8 +61,45 @@ def test_benchmark_json_names_the_cells_in_order():
         per = {m["name"] for m in bench["per_layer"] if w["name"] in m["workloads"]}
         assert per == set(cell.per_layer)
     for m in bench["per_layer"]:
+        assert set(m["workloads"]) <= set(listed), m["name"]
         for w in m["workloads"]:  # every cell that reports it reports what it moves
-            assert m["moves"] in cells.load(w).end_to_end
+            assert m["moves"] in cells.load(w, root).end_to_end
+
+
+def test_benchmark_json_names_the_cells_in_order():
+    check_benchmark(json.loads((CHECKOUT / "BENCHMARK.json").read_text()), BENCH)
+
+
+def _without_yi(bench: dict, root: Path) -> None:
+    name = "yi-6b.batched.offline"
+    bench["workloads"] = [w for w in bench["workloads"] if w["name"] != name]
+    for m in bench["per_layer"]:
+        m["workloads"] = [w for w in m["workloads"] if w != name]
+    (root / "workloads" / f"{name}.json").unlink()
+
+
+def _swapped(bench: dict, root: Path) -> None:
+    bench["workloads"][:2] = bench["workloads"][1::-1]
+
+
+def _unlisted_file(bench: dict, root: Path) -> None:
+    w = json.loads((root / "workloads" / "yi-6b.batched.offline.json").read_text())
+    w["name"] = "yi-6b.batched.other"
+    (root / "workloads" / f"{w['name']}.json").write_text(json.dumps(w))
+
+
+@pytest.mark.parametrize("change,refusal", [
+    (_without_yi, "the accepted cells first"), (_swapped, "the accepted cells first"),
+    (_unlisted_file, "a workload file each")])
+def test_check_benchmark_refuses(tmp_path, change, refusal):
+    """Nothing was loosened: dropping or reordering an accepted cell, or a
+    workload file that neither BENCHMARK.json nor ``WAITING`` lists, fails."""
+    bench = json.loads((CHECKOUT / "BENCHMARK.json").read_text())
+    root = copy_bench(tmp_path)
+    check_benchmark(bench, root)
+    change(bench, root)
+    with pytest.raises(AssertionError, match=refusal):
+        check_benchmark(bench, root)
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -62,9 +118,7 @@ def _digest(root: Path) -> dict:
 
 
 def test_a_new_cell_is_a_new_file(tmp_path):
-    root = tmp_path / "bench"
-    for d in ("planes", "metrics", "end_to_end", "traffic", "configs", "workloads"):
-        shutil.copytree(BENCH / d, root / d)
+    root = copy_bench(tmp_path)
     before = _digest(root)
     new = dict(json.loads((root / "workloads" / "yi-6b.batched.offline.json").read_text()),
                name="yi-6b.stream.offline", traffic="stream.chat")

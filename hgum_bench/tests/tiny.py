@@ -81,13 +81,22 @@ WORKLOADS = {
 FAMILY = Path(__file__).with_name("tiny_interleaved.py")
 
 
-def make_tree(tmp: Path) -> Path:
-    """The benchmark's planes, metrics and mixes, plus the tiny files and
-    the test family."""
+def copy_bench(tmp: Path) -> Path:
+    """A copy of the benchmark's files that ``cells.load`` finds by name:
+    planes, metrics, mixes, configurations, cells, and the families where
+    any ship."""
     root = tmp / "bench"
     for d in ("planes", "metrics", "end_to_end", "traffic", "configs", "workloads"):
         shutil.copytree(BENCH / d, root / d)
-    (root / "families").mkdir()
+    if (BENCH / "families").is_dir():
+        shutil.copytree(BENCH / "families", root / "families")
+    return root
+
+
+def make_tree(tmp: Path) -> Path:
+    """``copy_bench``'s tree plus the tiny files and the test family."""
+    root = copy_bench(tmp)
+    (root / "families").mkdir(exist_ok=True)
     shutil.copy(FAMILY, root / "families" / FAMILY.name)
     for name, cfg in CONFIGS.items():
         (root / "configs" / f"{name}.json").write_text(json.dumps(cfg))
