@@ -26,7 +26,8 @@ What it does, in order (any failed check raises and the exit code is 1):
    wire must parse back with ``max_new`` tokens per prompt; the unpack
    kernels' launch counters must rise during the serve run, and the
    decode-attention kernel must launch once a layer a decode step (layers
-   x decode steps).  The float32 smoke model must serve the same bytes on
+   x decode steps), the prefill-attention kernel once a layer a prefill
+   step.  The float32 smoke model must serve the same bytes on
    the card and on the host.
 4. Records: ``kernels.ops.decode_message_kernel`` on one wire of 2**20
    13-byte records (an unaligned uniform run): the general run kernel must
@@ -231,6 +232,23 @@ What it does, in order (any failed check raises and the exit code is 1):
    plain version's and ``scaled_dot_product_attention``'s (a yardstick
    the port never calls) at both cells' calls, and a ``[cost]`` line with
    the wrapper's host microseconds a call.
+18. Prefill attention (right after phase 17, on its own inputs): the
+   kernel of ``kernels.prefill_attention`` against its plain version
+   (``flash_attention``, beside it) at every family's heads over 640
+   causal positions (whisper's encoder unmasked, its cross attention 64
+   queries over 1500 frames and one), a window that bites, packed
+   segments, ``p_bf16``, the smoke models' float32 and the two benchmark
+   cells' prefill calls: one launch a call, out within
+   ``PREFILL_ATTN_RTOL``/``DECODE_ATTN_ATOL``; then timed at those two
+   calls (yi-6b 128 x 1024 positions,
+   kv 4 x 8 query heads of 128; mixtral 64 x 1024, 8 x 6 of 128):
+   ``[prefill-attn]`` lines with the kernel's time, its bound (the useful
+   causal flops at 989 TFLOP/s), the plain version's time and
+   ``scaled_dot_product_attention``'s with ``enable_gqa`` (a yardstick the
+   port never calls).  Phase 3 checks the serve's prefill launches ==
+   layers x prefill steps, phase 14 the training steps' launches == 2 x
+   layers x microbatches x steps (forward and remat recompute) and the
+   backward's plain recomputes == layers x microbatches x steps.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -283,6 +301,7 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import frame_pack as fp  # noqa: E402
 from repro_torch.kernels import phit_unpack as pu  # noqa: E402
+from repro_torch.kernels import prefill_attention as pa  # noqa: E402
 from repro_torch.launch import costanalysis  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -323,6 +342,7 @@ HBM_BYTES_PER_S = 3.35e12
 PHIT_SOURCE = "src/repro_torch/kernels/csrc/phit_unpack.cu"
 FRAME_SOURCE = "src/repro_torch/kernels/csrc/frame_pack.cu"
 DECODE_ATTN_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
+PREFILL_ATTN_SOURCE = "src/repro_torch/kernels/csrc/prefill_attention.cu"
 KERNELS = {
     # name: (source, replaces, plain version, wrapper, launch counters)
     "unpack_run_aligned": (PHIT_SOURCE, "src/repro/kernels/phit_unpack.py:48",
@@ -350,6 +370,10 @@ KERNELS = {
                          "none (the reference's decode_attention is plain jnp, "
                          "src/repro/models/common.py:242)",
                          da.append_and_attend_plain, da.append_and_attend, da.LAUNCHES),
+    "prefill_attention": (PREFILL_ATTN_SOURCE,
+                          "none (the reference's flash_attention is plain jnp, "
+                          "src/repro/models/common.py)",
+                          pa.flash_attention, pa.attend, pa.LAUNCHES),
 }
 FRAME_KERNELS = ("pack_frames_batch", "frame_batch", "unpack_frames_batch")
 SER_KERNELS = ("pack_run", "stamp_headers")
@@ -474,6 +498,40 @@ DECODE_ATTN_POS = 1087
 #: the last place: 2**-7 of its size in bfloat16 (1e-5 relative in float32)
 DECODE_ATTN_RTOL = {torch.bfloat16: 2.0**-7, torch.float32: 1e-5}
 DECODE_ATTN_ATOL = 2e-5
+# prefill attention (phase 18): (label, rows, positions S, keys T, kv heads,
+# query heads a kv head, head dim, dtype, attend's keywords); the cells'
+# calls are timed, every family's heads held to the plain version over
+# PREFILL_ATTN_FAMILY (rows, causal positions), with the extras
+PREFILL_ATTN_CELLS = (
+    ("yi-6b.batched.offline", 128, 1024, 1024, 4, 8, 128, torch.bfloat16, {}),
+    ("mixtral-8x22b.batched.offline", 64, 1024, 1024, 8, 6, 128, torch.bfloat16, {}),
+)
+PREFILL_ATTN_FAMILIES = ("yi-6b", "mixtral-8x22b") + DECODE_ATTN_FAMILIES
+PREFILL_ATTN_FAMILY = (4, 640)
+PREFILL_ATTN_EXTRA = (
+    ("whisper-tiny cross (64 queries)", 4, 64, 1500, 6, 1, 64, torch.bfloat16,
+     {"causal": False}),
+    ("whisper-tiny cross (decode)", 4, 1, 1500, 6, 1, 64, torch.bfloat16, {"causal": False}),
+    ("gemma2-27b window 256 of 1024", 2, 1024, 1024, 16, 2, 128, torch.bfloat16,
+     {"window": 256, "logit_cap": 50.0}),
+    ("packed segments, offset", 4, 300, 340, 4, 8, 128, torch.bfloat16,
+     {"segments": True, "q_offset": 40}),
+    ("p_bf16", 4, 256, 256, 4, 8, 128, torch.bfloat16, {"p_bf16": True}),
+    ("smoke float32 (MHA)", 4, 16, 16, 4, 1, 32, torch.float32, {}),
+    ("smoke float32 (MQA, window)", 4, 40, 40, 1, 4, 32, torch.float32, {"window": 8}),
+)
+#: kernel against plain, as DECODE_ATTN_RTOL (the float32 sums in another
+#: order, then one rounding to the output dtype); with p_bf16 each version
+#: rounds each p to bf16 against its own running max, which moves that p v
+#: term by at most 2**-8 of p |v| on each side: over a row, 2**-7 of w, the
+#: softmax-weighted mean of |v| (the plain version over |v| in float32;
+#: 2**-8 more for w's own float32 terms); and the plain version also rounds
+#: its key block's p @ v to bf16 and the kernel does not: with the output's
+#: two roundings, 3 * 2**-8 of |out|, under 2**-6
+PREFILL_ATTN_RTOL = dict(DECODE_ATTN_RTOL)
+PREFILL_ATTN_RTOL_P_BF16 = 2.0**-6
+#: the H100 SXM's dense bf16 tensor-core rate (NVIDIA data sheet), flop/s
+TENSOR_FLOPS = 989e12
 
 
 def log(msg: str) -> None:
@@ -955,6 +1013,7 @@ def reset_launches() -> None:
     pu.reset_launches()
     fp.reset_launches()
     da.reset_launches()
+    pa.reset_launches()
 
 
 def read_launches() -> dict:
@@ -999,15 +1058,20 @@ def phase_serve(dev, wires):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    decode_steps = [0]
-    step_fn = steps_mod.decode_step
+    decode_steps, prefill_steps = [0], [0]
+    step_fn, prefill_fn = steps_mod.decode_step, steps_mod.prefill
 
     def counted_step(*args, **kwargs):
         decode_steps[0] += 1
         return step_fn(*args, **kwargs)
 
+    def counted_prefill(*args, **kwargs):
+        prefill_steps[0] += 1
+        return prefill_fn(*args, **kwargs)
+
     t0 = time.perf_counter()
-    with mock.patch.object(steps_mod, "decode_step", counted_step):
+    with mock.patch.object(steps_mod, "decode_step", counted_step), \
+            mock.patch.object(steps_mod, "prefill", counted_prefill):
         resp = serve.serve_requests(params, cfg, wires, max_new=MAX_NEW, pad_to=PAD_TO,
                                     slots=SLOTS, device=dev)
     torch.cuda.synchronize()
@@ -1020,6 +1084,12 @@ def phase_serve(dev, wires):
           f"{decode_steps[0]} decode steps of {cfg.n_layers} layers")
     log(f"[serve] decode attention: {launches['decode_attention']} launches == "
         f"{cfg.n_layers} layers x {decode_steps[0]} decode steps")
+    check(prefill_steps[0] >= 1
+          and launches["prefill_attention"] == cfg.n_layers * prefill_steps[0],
+          f"prefill attention launched {launches['prefill_attention']} times in "
+          f"{prefill_steps[0]} prefill steps of {cfg.n_layers} layers")
+    log(f"[serve] prefill attention: {launches['prefill_attention']} launches == "
+        f"{cfg.n_layers} layers x {prefill_steps[0]} prefill steps")
     n_out = check_responses(cfg, resp)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[serve] serve_requests: {len(wires)} requests, {n_out} tokens generated in "
@@ -2222,6 +2292,12 @@ def train_run(dev, card: str) -> dict:
         update_ms.append(1e3 * (time.perf_counter() - t))
         return out
 
+    real_plain, plain_calls = pa.flash_attention, [0]
+
+    def counted_plain(*a, **k):  # counts, and keeps no reference to the call's tensors
+        plain_calls[0] += 1
+        return real_plain(*a, **k)
+
     rows, peak = [], {}
     pf = Prefetcher(pipe.host_make_wire, depth=2)
     torch.cuda.synchronize()
@@ -2229,6 +2305,7 @@ def train_run(dev, card: str) -> dict:
     reset_launches()
     try:
         with mock.patch.object(steps_mod, "adamw_update", timed_update), \
+                mock.patch.object(pa, "flash_attention", counted_plain), \
                 pu.recording() as des_calls:
             step_fn, moments = fp32_step, "fp32"
             for i in range(TRAIN_STEPS + TRAIN_Q8_STEPS):
@@ -2268,6 +2345,13 @@ def train_run(dev, card: str) -> dict:
     peak["q8"] = torch.cuda.max_memory_allocated() / 2**30
     launches = read_launches()
     check(launches["unpack_gather"] == 2 * len(rows), f"B3 launches {launches}")
+    # each microbatch's forward launches the prefill-attention kernel once a
+    # layer and the per-layer remat's recompute once more; the kernel's
+    # backward recomputes the plain version once a layer for the gradient
+    passes = cfg.n_layers * cfg.microbatch * len(rows)
+    check(launches["prefill_attention"] == 2 * passes and plain_calls[0] == passes,
+          f"training attention: {launches['prefill_attention']} kernel launches and "
+          f"{plain_calls[0]} plain calls, not {2 * passes} and {passes}")
     # descent: DESCENT_STEPS steps on the last batch, from fresh fp32
     # moments at a constant DESCENT_LR, must lower that batch's loss
     del opt
@@ -2285,7 +2369,7 @@ def train_run(dev, card: str) -> dict:
     del params, opt, batch
     torch.cuda.empty_cache()
     return dict(rows=rows, launches=launches, des_calls=des_calls, peak=peak,
-                n_params=n_params, cfg=cfg, descent=descent)
+                n_params=n_params, cfg=cfg, descent=descent, plain_attn=plain_calls[0])
 
 
 def restart_bitwise() -> float:
@@ -2388,6 +2472,9 @@ def phase_train(dev, card: str) -> list:
         f"{res['peak']['q8']:.2f} GiB")
     log(f"[train] {TRAIN_ARCH} | {card} | descent: {DESCENT_STEPS} steps at lr {DESCENT_LR:g} on "
         f"the last batch, its loss {[round(x, 4) for x in res['descent']]}")
+    log(f"[train] {card} | prefill_attention: {res['launches']['prefill_attention']} launches "
+        f"({len(rows)} steps x {cfg.microbatch} microbatches x {cfg.n_layers} layers, forward "
+        f"and remat recompute), the backward's plain recompute {res['plain_attn']} calls")
     log(f"[train] {card} | B3 unpack_gather: {res['launches']['unpack_gather']} launches "
         f"({len(rows)} steps x 2), == plain at the {len(calls)} recorded calls; at one step's "
         f"2 calls ({calls[0][1].numel()} offsets each): kernel {b3['ms']:.4f} ms, bound "
@@ -3055,6 +3142,145 @@ def decode_attn_hold_all(dev, g) -> float:
     return worst
 
 
+# ---------------------------------------------------------------------------
+# phase 18: prefill attention
+# ---------------------------------------------------------------------------
+
+
+def prefill_attn_cases() -> list:
+    cases = []
+    B, S = PREFILL_ATTN_FAMILY
+    for arch in PREFILL_ATTN_FAMILIES:
+        c = get_config(arch)
+        kw = {"causal": c.family != "encdec"}  # whisper's encoder: unmasked
+        if c.window is not None:
+            kw["window"] = c.window
+        if c.attn_softcap is not None:
+            kw["logit_cap"] = c.attn_softcap
+        cases.append((arch, B, S, S, c.n_kv, c.n_heads // c.n_kv, c.hd, torch.bfloat16, kw))
+    return cases + list(PREFILL_ATTN_EXTRA)
+
+
+def prefill_attn_inputs(case, dev, g):
+    """Random q, k, v of ``case`` and attend's keywords (sorted segment ids
+    drawn where it asks for them)."""
+    _, B, S, T, K, G, D, dtype, kw = case
+    # a softcapped model's scores reach the cap: q scaled up
+    scale = 40.0 if kw.get("logit_cap") else 1.0
+    q = (torch.randn((B, S, K, G, D), generator=g, device=dev) * scale).to(dtype)
+    k, v = (torch.randn((B, T, K, D), generator=g, device=dev).to(dtype) for _ in range(2))
+    kw = dict(kw)
+    if kw.pop("segments", False):
+        kw["segment_q"] = torch.sort(torch.randint(0, 4, (B, S), generator=g, device=dev),
+                                     dim=1).values.to(torch.int32)
+        kw["segment_k"] = torch.sort(torch.randint(0, 4, (B, T), generator=g, device=dev),
+                                     dim=1).values.to(torch.int32)
+    return q, k, v, kw
+
+
+def plain_prefill_attn(q, k, v, kw) -> torch.Tensor:
+    """The plain version, its bf16 p @ v (p_bf16) summed in float32 as the
+    reference sums it (cuBLAS may otherwise reduce a bf16 product's split-K
+    partial sums in bf16)."""
+    keep = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return pa.flash_attention(q, k, v, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = keep
+
+
+def prefill_attn_hold(got: torch.Tensor, want: torch.Tensor, q, k, v, kw: dict,
+                      what: str) -> float:
+    """Kernel output against plain within the stated tolerance; returns the
+    largest |difference|."""
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    rtol, atol = PREFILL_ATTN_RTOL[got.dtype], DECODE_ATTN_ATOL
+    if kw.get("p_bf16"):
+        w = plain_prefill_attn(q.float(), k.float(), v.float().abs(), {**kw, "p_bf16": False})
+        rtol, atol = PREFILL_ATTN_RTOL_P_BF16, atol + 2.0**-7 * (1 + 2.0**-8) * w
+    tol = rtol * torch.maximum(a.abs(), b.abs()) + atol
+    check(bool(torch.isfinite(a).all()), f"{what}: non-finite output")
+    i = int(torch.argmax(err - tol))
+    check(bool((err <= tol).all()), f"{what}: kernel {float(a.flatten()[i])} against plain "
+          f"{float(b.flatten()[i])}, past the tolerance {float(tol.flatten()[i])}")
+    return float(err.max())
+
+
+def prefill_attn_flops(case) -> int:
+    """Useful flops of a causal call from position 0: each query head's
+    position s scores and sums s + 1 keys, 4 D flops a key."""
+    _, B, S, _, K, G, D, _, _ = case
+    return 4 * D * B * K * G * S * (S + 1) // 2
+
+
+def prefill_sdpa_ms(q, k, v, reps: int):
+    """The library yardstick (never called by the port): PyTorch's causal
+    ``scaled_dot_product_attention``, query heads grouped on their kv head;
+    None where this PyTorch has no ``enable_gqa``."""
+    B, S, K, G, D = q.shape
+    qh = q.reshape(B, S, K * G, D).transpose(1, 2)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    try:
+        def fn():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True)
+        fn()
+    except TypeError:
+        return None
+    return time_ms(fn, reps)
+
+
+def phase_prefill_attention(dev, card: str) -> dict:
+    """Phase 18: the prefill-attention kernel against its plain version at
+    every family's heads, the extras and the cells' prefill calls (one
+    launch a call, out within the stated tolerance), then timed at the
+    cells' calls; returns chip_smoke's kernel rows (main: the yi-6b cell's
+    call; large: the mixtral cell's), each with its own call's error."""
+    g = torch.Generator(device=dev).manual_seed(18)
+
+    def held(case, q, k, v, kw) -> float:
+        label, B, S, T, K, G, D, dtype, _ = case
+        before = pa.LAUNCHES["prefill_attention"]
+        got = pa.attend(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(pa.LAUNCHES["prefill_attention"] == before + 1, f"{label}: not one launch")
+        err = prefill_attn_hold(got, plain_prefill_attn(q, k, v, kw), q, k, v, kw, label)
+        shown = {n: x for n, x in kw.items() if not n.startswith("segment")}
+        log(f"[prefill-attn] {label}: {B} rows x {S} positions x {T} keys x {K} kv heads x "
+            f"{G} q/kv x {D} {str(dtype).split('.')[-1]} {shown}"
+            f"{' segments' if 'segment_q' in kw else ''}: max |out - plain| {err:.3g}")
+        return err
+
+    for case in prefill_attn_cases():
+        q, k, v, kw = prefill_attn_inputs(case, dev, g)
+        held(case, q, k, v, kw)
+        del q, k, v
+    rows = {}
+    for label, case in zip(("main", "large"), PREFILL_ATTN_CELLS):
+        q, k, v, kw = prefill_attn_inputs(case, dev, g)
+        err = held(case, q, k, v, kw)
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: pa.attend(q, k, v, **kw), reps=20)
+        plain_ms = time_ms(lambda: pa.flash_attention(q, k, v, **kw), reps=2, warmup=1)
+        flops = prefill_attn_flops(case)
+        bound_ms = flops / TENSOR_FLOPS * 1e3
+        lib = prefill_sdpa_ms(q, k, v, reps=20)
+        rows[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": "flops", "library_ms": lib, "max_abs_err": err,
+                       "share": bound_ms / ms}
+        libs = f"{lib:.4f}" if lib is not None else "n/a"
+        log(f"[prefill-attn] {card} | {case[0]} prefill call ({case[1]} x {case[2]} "
+            f"positions, {case[4]} kv heads x {case[5]} q/kv x {case[6]}): kernel {ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({flops} useful flops at 989 TFLOP/s; "
+            f"{100 * bound_ms / ms:.1f} %), {flops / ms / 1e9:.1f} TFLOP/s; plain "
+            f"{plain_ms:.4f} ms; scaled_dot_product_attention {libs} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -3082,6 +3308,7 @@ def main() -> int:
     rows = phase_kernels(dev, main_path_calls(dev, wires, rec_plan, rec_lanes))
     serve_launches, params, cfg, base = phase_serve(dev, wires)
     rows["decode_attention"] = phase_decode_attention(dev, card)
+    rows["prefill_attention"] = phase_prefill_attention(dev, card)
     fabric_launches, joins = phase_fabric(dev)
     path_launches = [serve_launches, phase_records(rec_plan, rec_lanes, rec_wire, recs),
                      fabric_launches]
@@ -3118,7 +3345,7 @@ def main() -> int:
             "launches": n, "max_abs_err": max(m["max_abs_err"],
                                               rows[name]["large"]["max_abs_err"]),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": "bytes", "library_ms": m["library_ms"],
+            "bound_by": m.get("bound_by", "bytes"), "library_ms": m["library_ms"],
         })
     log(f"[card] {card}")
     print(json.dumps({"kernels": records}))

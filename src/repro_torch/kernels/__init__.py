@@ -11,7 +11,11 @@ version); ``ops`` holds the public wrappers
 ``encode_frames_batch``, ``encode_chunks_batch``, ...);
 ``decode_attention`` the decode step's append-and-attend
 (``csrc/decode_attention.cu``, beside its plain version), which
-``models.attention.attn_decode`` calls and which replaces no TPU kernel.
+``models.attention.attn_decode`` calls, and ``prefill_attention`` the
+prefill's attention (``csrc/prefill_attention.cu``, beside its plain
+version ``flash_attention``, which ``models.common`` re-exports), which
+``attn_forward`` and ``cross_attn_forward`` call; neither replaces a TPU
+kernel.
 Importing this package builds nothing: a kernel is built on its first
 launch.
 """

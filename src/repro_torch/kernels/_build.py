@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``kernels/build/lib<name>-<hash>.so`` (the directory is
-listed in ``.gitignore``).  The hash covers the source and the flags, so an
-edited source rebuilds and an unchanged one loads at once.  Nothing is
+listed in ``.gitignore``).  The hash covers the source, the headers of
+``csrc/`` (``*.cuh``, which sources may include) and the flags, so an
+edited source or header rebuilds and an unchanged one loads at once.  Nothing is
 built or loaded when a module is imported: the CPU tests import every
 module on a host that has no ``nvcc``.
 """
@@ -48,6 +49,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -73,7 +73,11 @@
 
 #include <type_traits>
 
+#include "attention_common.cuh"
+
 namespace {
+
+using namespace hgum_attn;
 
 constexpr int kWarps = 2;  // a block; 1, 3, 4 and 8 measured slower at the cells' calls
 constexpr int kThreads = 32 * kWarps;
@@ -145,45 +149,6 @@ template <> struct Elem<float> {
   __device__ static __forceinline__ float load(const float* p) { return *p; }
   __device__ static __forceinline__ void store(float* p, float x) { *p = x; }
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, one row address a lane.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// c += a b on the tensor cores: a 16 x 16 bf16 (row-major), b 16 x 8 bf16,
-// c 16 x 8 float32
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Copy rows [t0, t0 + n) of one head's keys (or values) into a tile, one
 // 16-byte phit a lane: lane (row r, phit col) of each pass of `per_pass`

@@ -13,7 +13,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.decode_attention import append_and_attend
-from .common import _param, apply_rope, dense_init, flash_attention
+from ..kernels.prefill_attention import attend
+from .common import _param, apply_rope, dense_init
 
 
 class Attention(torch.nn.Module):
@@ -62,7 +63,9 @@ def attn_forward(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence attention; returns (out, (k, v)) for cache priming.
     ``segment_ids`` (packed sequences) keep each query to its own
-    segment's keys."""
+    segment's keys.  The attention is ``kernels.prefill_attention``'s
+    ``attend``: its plain ``flash_attention`` on the CPU, one kernel launch
+    on the card (under autograd too, with the plain version's gradient)."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     if cfg.use_rope:
@@ -71,7 +74,7 @@ def attn_forward(
         q = apply_rope(q.reshape(B, S, cfg.n_heads, cfg.hd), positions, cfg.rope_theta)
         q = q.reshape(B, S, cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.hd)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = flash_attention(
+    out = attend(
         q, k, v, causal=causal, window=window, logit_cap=cfg.attn_softcap,
         q_offset=q_offset, segment_q=segment_ids, segment_k=segment_ids,
         p_bf16=cfg.attn_p_bf16,
@@ -127,13 +130,13 @@ def cross_attn_forward(
     enc_kv: Tuple[torch.Tensor, torch.Tensor],  # precomputed (k, v): (B,T,K,D)
     cfg: ModelConfig,
 ) -> torch.Tensor:
-    """Decoder queries against the encoder's K/V, unmasked; decode runs it
-    with S = 1."""
+    """Decoder queries against the encoder's K/V, unmasked
+    (``kernels.prefill_attention.attend``); decode runs it with S = 1."""
     B, S, _ = x.shape
     nq, nkv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     q = _split_heads(x @ p.wq, nq, hd).reshape(B, S, nkv, nq // nkv, hd)
     k, v = enc_kv
-    out = flash_attention(q, k, v, causal=False, logit_cap=cfg.attn_softcap)
+    out = attend(q, k, v, causal=False, logit_cap=cfg.attn_softcap)
     return out.reshape(B, S, nq * hd) @ p.wo
 
 

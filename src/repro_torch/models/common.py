@@ -18,6 +18,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+# the blocked prefill attention, re-exported: it lives beside its kernel
+from ..kernels.prefill_attention import NEG_INF, flash_attention  # noqa: F401
+
 # ---------------------------------------------------------------------------
 # dtype / init helpers
 # ---------------------------------------------------------------------------
@@ -155,89 +158,8 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Blocked attention (plain torch, online softmax)
+# Decode attention (plain torch)
 # ---------------------------------------------------------------------------
-
-NEG_INF = -1e30
-
-
-def flash_attention(
-    q: torch.Tensor,  # (B, S, K, G, D)   K = kv heads, G = q heads per kv
-    k: torch.Tensor,  # (B, T, K, D)
-    v: torch.Tensor,  # (B, T, K, D)
-    *,
-    causal: bool = True,
-    window: Optional[int] = None,
-    logit_cap: Optional[float] = None,
-    q_offset: int = 0,
-    segment_q: Optional[torch.Tensor] = None,  # (B, S)
-    segment_k: Optional[torch.Tensor] = None,  # (B, T)
-    kv_len: Optional[torch.Tensor] = None,  # valid prefix length of k/v
-    block_q: int = 512,
-    block_k: int = 1024,
-    scale: Optional[float] = None,
-    p_bf16: bool = False,
-) -> torch.Tensor:
-    """Double-blocked online-softmax attention, as the reference computes
-    it: scores and ``p @ v`` in float32 (``p`` and ``v`` cast to bf16 for
-    the product when ``p_bf16``), one (block_q, block_k) tile at a time, so
-    (S, T) is never materialized.  Returns (B, S, K, G, D).
-
-    A query attends to a key only where their segment ids are equal
-    (packed sequences), and only to keys below ``kv_len``.  The reference
-    pads S and T to whole blocks (pad segments -1 for queries, -2 for
-    keys, never equal); here the last tiles are short instead, which masks
-    the same keys: a padded key only ever adds ``exp(-1e30 - m) = 0``.
-    Under autograd each tile's float32 scores are kept for the backward
-    pass (per-layer remat bounds that to one layer)."""
-    B, S, K, G, D = q.shape
-    T = k.shape[1]
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    block_q = min(block_q, S)
-    block_k = min(block_k, T)
-    dev = q.device
-    t_end = T if kv_len is None else kv_len
-    outs = []
-    for q0 in range(0, S, block_q):
-        qb = q[:, q0:q0 + block_q].float()
-        bq = qb.shape[1]
-        q_pos = q_offset + q0 + torch.arange(bq, device=dev)
-        sqb = segment_q[:, q0:q0 + bq] if segment_q is not None else None
-        acc = torch.zeros((B, bq, K, G, D), dtype=torch.float32, device=dev)
-        m_run = torch.full((B, bq, K, G), NEG_INF, dtype=torch.float32, device=dev)
-        l_run = torch.zeros((B, bq, K, G), dtype=torch.float32, device=dev)
-        for k0 in range(0, T, block_k):
-            kb = k[:, k0:k0 + block_k].float()
-            vb = v[:, k0:k0 + block_k]
-            bk = kb.shape[1]
-            k_pos = k0 + torch.arange(bk, device=dev)
-            s = torch.einsum("bqkgd,btkd->bqkgt", qb, kb) * scale
-            s = softcap(s, logit_cap)
-            ok = (k_pos < t_end)[None, :].expand(bq, bk)
-            if causal:
-                ok = ok & (q_pos[:, None] >= k_pos[None, :])
-            if window is not None:
-                ok = ok & (q_pos[:, None] - k_pos[None, :] < window)
-            if sqb is not None:
-                skb = segment_k[:, k0:k0 + bk]
-                ok = ok[None] & (sqb[:, :, None] == skb[:, None, :])
-            else:
-                ok = ok[None]
-            mask = torch.where(ok, 0.0, NEG_INF).to(torch.float32)  # (B?, bq, bk)
-            s = s + mask[:, :, None, None, :]
-            m_new = torch.maximum(m_run, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m_run - m_new)
-            l_run = l_run * corr + p.sum(dim=-1)
-            if p_bf16:  # p is the (S, T) stream: bf16 halves its bytes
-                pv = torch.einsum("bqkgt,btkd->bqkgd", p.to(torch.bfloat16),
-                                  vb.to(torch.bfloat16)).float()
-            else:
-                pv = torch.einsum("bqkgt,btkd->bqkgd", p, vb.float())
-            acc = acc * corr[..., None] + pv
-            m_run = m_new
-        outs.append(acc / torch.clamp(l_run[..., None], min=1e-30))
-    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 def decode_attention(

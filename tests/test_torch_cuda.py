@@ -1029,3 +1029,174 @@ def test_decode_attention_kernel_equals_plain(cuda_device, G, K, D, T, ring, cap
     rtol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
     a, b = got.float(), want.float()
     assert bool(((a - b).abs() <= rtol * torch.maximum(a.abs(), b.abs()) + 2e-5).all())
+
+
+# ---------------------------------------------------------------------------
+# prefill attention (kernels.prefill_attention) against flash_attention
+# ---------------------------------------------------------------------------
+
+#: (G, K, D, S, T, dtype, keywords): the cells' heads (yi-6b at its 1024
+#: positions, mixtral), granite's MQA, stablelm's MHA at 80, phi-3-vision's
+#: 96, gemma2's window and softcap, whisper's encoder and cross attention
+#: (S != T, and S = 1 as its decode runs it), q_offset, packed segments,
+#: kv_len, p_bf16, a row no key may attend (q_offset < 0: the plain
+#: version's mean of v), and the smoke models' float32
+PREFILL_ATTN_CASES = [
+    (8, 4, 128, 1024, 1024, torch.bfloat16, {}),
+    (6, 8, 128, 256, 256, torch.bfloat16, {}),
+    (48, 1, 128, 256, 256, torch.bfloat16, {}),
+    (1, 8, 80, 256, 256, torch.bfloat16, {}),
+    (1, 8, 96, 17, 17, torch.bfloat16, {}),
+    (2, 4, 128, 1024, 1024, torch.bfloat16, dict(window=300, logit_cap=50.0)),
+    (1, 6, 64, 256, 256, torch.bfloat16, dict(causal=False)),
+    (1, 6, 64, 17, 300, torch.bfloat16, dict(causal=False)),
+    (1, 6, 64, 1, 300, torch.bfloat16, dict(causal=False)),
+    (8, 2, 128, 17, 17, torch.bfloat16, dict(q_offset=5)),
+    (6, 2, 64, 256, 256, torch.bfloat16, dict(segments=True)),
+    (2, 2, 32, 256, 300, torch.bfloat16, dict(kv_len=200)),
+    (8, 2, 128, 256, 256, torch.bfloat16, dict(p_bf16=True)),
+    (2, 2, 32, 1, 1, torch.bfloat16, {}),
+    (3, 2, 32, 17, 17, torch.bfloat16, dict(q_offset=-5)),
+    (4, 2, 32, 17, 17, torch.float32, {}),
+    (1, 4, 64, 256, 256, torch.float32, dict(window=64, logit_cap=5.0, q_offset=3)),
+    (48, 1, 32, 17, 40, torch.float32, dict(causal=False, segments=True)),
+    (2, 2, 32, 33, 33, torch.float32, dict(p_bf16=True)),
+    (3, 2, 128, 17, 17, torch.float32, dict(q_offset=-5, kv_len=12)),
+]
+#: kernel against plain.  Both sum the same float32 products in another
+#: order (the kernel's tiles are 64 keys, the plain version's 1024), which
+#: moves a float32 result by a few units of 2**-24 of the sums (2e-5 at
+#: most here, 1e-5 relative in float32); then both round once to the output
+#: dtype, so a value on a rounding edge differs by one unit in the last
+#: place: 2**-7 of its size in bfloat16.  With p_bf16 each version rounds
+#: each p to bf16 (the kernel against its running max over 64-key tiles,
+#: the plain version against its max over 1024), which moves that p v term
+#: by at most 2**-8 of p |v| on each side: over a row, 2**-7 of w, the
+#: softmax-weighted mean of |v| (the plain version's output over |v|,
+#: computed in float32; 2**-8 more for w's own float32 terms); and the
+#: plain version also rounds its key block's p @ v to bf16 (its einsum's
+#: output dtype), which the kernel does not: with the output's two
+#: roundings, 3 * 2**-8 of |out|, under 2**-6
+PREFILL_ATTN_RTOL = {torch.bfloat16: 2.0**-7, torch.float32: 1e-5}
+PREFILL_ATTN_RTOL_P_BF16 = 2.0**-6
+PREFILL_ATTN_ATOL = 2e-5
+
+
+def _prefill_attn_inputs(case, dev, seed):
+    G, K, D, S, T, dtype, kw = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = 3
+    # a softcapped model's scores reach the cap: q scaled up
+    scale = 40.0 if kw.get("logit_cap") else 1.0
+    q = (torch.randn((B, S, K, G, D), generator=g, device=dev) * scale).to(dtype)
+    k, v = (torch.randn((B, T, K, D), generator=g, device=dev).to(dtype) for _ in range(2))
+    kw = dict(kw)
+    if kw.pop("segments", False):
+        kw["segment_q"] = torch.sort(torch.randint(0, 4, (B, S), generator=g, device=dev),
+                                     dim=1).values.to(torch.int32)
+        kw["segment_k"] = torch.sort(torch.randint(0, 4, (B, T), generator=g, device=dev),
+                                     dim=1).values.to(torch.int32)
+    return q, k, v, kw
+
+
+def _plain_prefill_attn(q, k, v, kw):
+    """``flash_attention`` with its bf16 ``p @ v`` (``p_bf16``) summed in
+    float32, as the reference's einsum sums it: cuBLAS may otherwise reduce
+    a bf16 product's split-K partial sums in bf16."""
+    from repro_torch.kernels.prefill_attention import flash_attention
+
+    keep = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return flash_attention(q, k, v, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = keep
+
+
+@pytest.mark.parametrize("case", PREFILL_ATTN_CASES,
+                         ids=lambda c: f"G{c[0]}-K{c[1]}-D{c[2]}-S{c[3]}-T{c[4]}-"
+                         f"{str(c[5]).split('.')[-1]}-" + "-".join(sorted(c[6])))
+def test_prefill_attention_kernel_equals_plain(cuda_device, case):
+    """One launch of ``kernels.prefill_attention.attend`` against
+    ``flash_attention`` on the same inputs, within the stated tolerance."""
+    from repro_torch.kernels import prefill_attention as pa
+
+    q, k, v, kw = _prefill_attn_inputs(case, cuda_device, seed=sum(case[:5]))
+    before = pa.LAUNCHES["prefill_attention"]
+    got = pa.attend(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["prefill_attention"] == before + 1
+    want = _plain_prefill_attn(q, k, v, kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    rtol, atol = PREFILL_ATTN_RTOL[q.dtype], PREFILL_ATTN_ATOL
+    if kw.get("p_bf16"):
+        w = _plain_prefill_attn(q.float(), k.float(), v.float().abs(), {**kw, "p_bf16": False})
+        rtol, atol = PREFILL_ATTN_RTOL_P_BF16, atol + 2.0**-7 * (1 + 2.0**-8) * w
+    a, b = got.float(), want.float()
+    assert bool(torch.isfinite(a).all())
+    assert bool(((a - b).abs() <= rtol * torch.maximum(a.abs(), b.abs()) + atol).all()), \
+        float((a - b).abs().max())
+
+
+def test_served_prefill_launches_prefill_attention_once_a_layer(cuda_device):
+    """A yi-6b-shaped model in bf16 (the smoke widths, GQA 4 x 2, no remat, so
+    the backward pass runs no second forward): one served prefill step
+    launches the kernel once per attention layer and never calls
+    ``flash_attention``; the same forward under autograd (parameters
+    requiring grad) launches it once a layer too, and its backward
+    recomputes the plain version once a layer for the gradient."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import forward
+
+    cfg = dataclasses.replace(smoke_config(get_config("yi-6b")), dtype="bfloat16", n_kv=2,
+                              remat=False)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(2, cfg.vocab, (4, 64)).astype(
+        np.int32)).to(cuda_device)
+    step = make_prefill_step(cfg, cache_len=80)
+    before = pa.LAUNCHES["prefill_attention"]
+    with mock.patch.object(pa, "flash_attention", wraps=pa.flash_attention) as plain:
+        tok, cache = step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        assert pa.LAUNCHES["prefill_attention"] == before + cfg.n_layers
+        assert plain.call_count == 0
+        for w in params.parameters():
+            w.requires_grad_(True)
+        logits, _, _ = forward(params, cfg, {"tokens": toks})
+        assert pa.LAUNCHES["prefill_attention"] == before + 2 * cfg.n_layers
+        assert plain.call_count == 0
+        logits.float().sum().backward()
+    assert pa.LAUNCHES["prefill_attention"] == before + 2 * cfg.n_layers
+    assert plain.call_count == cfg.n_layers
+    assert all(w.grad is not None and bool(torch.isfinite(w.grad).all())
+               for w in params.parameters())
+    assert tuple(tok.shape) == (4, 1) and len(cache["layers"]) == cfg.n_layers
+
+
+@pytest.mark.parametrize("case", [PREFILL_ATTN_CASES[i] for i in (0, 10, 7, 17)],
+                         ids=["G8-D128-S1024", "segments", "cross", "float32-segments"])
+def test_prefill_attention_kernel_backward_is_plain_gradient(cuda_device, case):
+    """Under autograd ``attend`` still launches the kernel once, with the
+    no-grad launch's output bit for bit; its backward is the plain
+    version's gradient of the same ``grad``, bit for bit (it recomputes
+    that version from the saved q, k and v)."""
+    from repro_torch.kernels import prefill_attention as pa
+
+    q, k, v, kw = _prefill_attn_inputs(case, cuda_device, seed=7 + sum(case[:5]))
+    with torch.no_grad():
+        want_out = pa.attend(q, k, v, **kw)
+    xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(8),
+                    device=cuda_device).to(q.dtype)
+    before = pa.LAUNCHES["prefill_attention"]
+    out = pa.attend(*xs, **kw)
+    got = torch.autograd.grad(out, xs, g)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["prefill_attention"] == before + 1
+    assert torch.equal(out, want_out)
+    want = torch.autograd.grad(pa.flash_attention(*xs, **kw), xs, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -198,6 +198,26 @@ def test_decode_on_cpu_takes_the_plain_attention(models):
     _close(tl, jl)
 
 
+def test_prefill_on_cpu_takes_the_plain_attention(models):
+    """CPU tensors: a prefill runs ``kernels.prefill_attention.attend``'s
+    plain version (``flash_attention``) once for each attention layer (none
+    for xlstm) and never launches the kernel; the logits still match the
+    reference's."""
+    from unittest import mock
+
+    from repro_torch.kernels import prefill_attention as pa
+
+    jcfg, jparams, cfg, tparams = models
+    toks = _tokens(cfg, (2, 7), 4)
+    before = dict(pa.LAUNCHES)
+    with mock.patch.object(pa, "flash_attention", wraps=pa.flash_attention) as plain:
+        tl, _ = prefill(tparams, cfg, {"tokens": torch.from_numpy(toks)}, cache_len=9)
+    assert plain.call_count == sum(s == "attn" for s, _ in t_model.layer_plan(cfg))
+    assert pa.LAUNCHES == before
+    jl, _ = j_prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)}, cache_len=9)
+    _close(tl, jl)
+
+
 def test_scan_layers_forward(models):
     """``scan_layers=True``: the same logits, and the reference's ``aux``
     (the last period position's balance loss, averaged over periods)."""

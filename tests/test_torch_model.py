@@ -277,3 +277,163 @@ def test_decode_attention_rejects_what_the_kernel_does_not_take(bad):
         x["v_cache"] = x["k_cache"]
     with pytest.raises(ValueError):
         da._check(**x)
+
+
+# ---------------------------------------------------------------------------
+# prefill attention (kernels.prefill_attention): on the CPU, flash_attention
+# ---------------------------------------------------------------------------
+
+#: (S, T, K, G, D, dtype, flash_attention's keywords): yi-6b's and mixtral's
+#: groups, granite's MQA, a softcapped window, packed segments with an
+#: offset, a kv_len, cross attention (S != T, no mask), one query, p_bf16
+PREFILL_CASES = {
+    "causal-yi": (33, 33, 2, 8, 32, torch.float32, {}),
+    "causal-bf16-mixtral": (21, 21, 2, 6, 32, torch.bfloat16, {}),
+    "mqa": (17, 17, 1, 48, 16, torch.float32, {}),
+    "window-softcap": (40, 40, 2, 2, 16, torch.float32, dict(window=7, logit_cap=5.0)),
+    "segments-offset": (19, 25, 2, 3, 16, torch.float32, dict(q_offset=6, segments=True)),
+    "kv_len": (12, 20, 1, 4, 16, torch.float32, dict(causal=False, kv_len=9)),
+    "cross": (5, 30, 3, 1, 64, torch.float32, dict(causal=False)),
+    "one-query": (1, 30, 2, 2, 32, torch.bfloat16, dict(causal=False, logit_cap=50.0)),
+    "p_bf16": (26, 26, 2, 2, 16, torch.float32, dict(p_bf16=True, scale=0.3)),
+}
+
+
+def _prefill_inputs(S, T, K, G, D, dtype, kw, B=2, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype)
+               for shape in ((B, S, K, G, D), (B, T, K, D), (B, T, K, D)))
+    kw = dict(kw)
+    if kw.pop("segments", False):
+        kw["segment_q"] = torch.sort(torch.randint(0, 3, (B, S), generator=g), dim=1).values
+        kw["segment_k"] = torch.sort(torch.randint(0, 3, (B, T), generator=g), dim=1).values
+    return q, k, v, kw
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_prefill_attention_on_cpu_is_flash_attention(case):
+    """CPU tensors: ``attend`` is ``flash_attention`` bit for bit, with the
+    same keywords, and never launches."""
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.models.common import flash_attention
+
+    q, k, v, kw = _prefill_inputs(*PREFILL_CASES[case])
+    before = dict(pa.LAUNCHES)
+    got = pa.attend(q, k, v, **kw)
+    assert pa.LAUNCHES == before
+    want = flash_attention(q, k, v, **kw)
+    assert got.dtype == q.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bad", ["k_shape", "v_shape", "dtype", "mixed_dtype", "head_dim",
+                                 "head_dim_wide", "segments_alone", "segment_shape",
+                                 "device", "no_keys"])
+def test_prefill_attention_rejects_what_the_kernel_does_not_take(bad):
+    """The kernel wrapper's checks (run before any launch): k or v of
+    another shape, float16 or mixed dtypes, head dims that are no multiple
+    of 16 or wider than 128, one side of the segment ids, segment ids of
+    another length, k on another device than q, no keys."""
+    from repro_torch.kernels import prefill_attention as pa
+
+    B, S, T, K, G, D = 2, 9, 11, 2, 3, 32
+    if bad == "head_dim":
+        D = 24
+    elif bad == "head_dim_wide":
+        D = 144
+    x = dict(q=torch.zeros(B, S, K, G, D, dtype=torch.bfloat16),
+             k=torch.zeros(B, T, K, D, dtype=torch.bfloat16),
+             v=torch.zeros(B, T, K, D, dtype=torch.bfloat16),
+             segment_q=torch.zeros(B, S, dtype=torch.int32),
+             segment_k=torch.zeros(B, T, dtype=torch.int32))
+    if not bad.startswith("head_dim"):
+        assert pa._check(**x) == (B, S, T, K, G, D)
+    if bad == "k_shape":
+        x["k"] = x["k"][:, :, :1]
+    elif bad == "v_shape":
+        x["v"] = x["v"][:, :-1]
+    elif bad == "dtype":
+        x = {n: t.half() if t.is_floating_point() else t for n, t in x.items()}
+    elif bad == "mixed_dtype":
+        x["q"] = x["q"].float()
+    elif bad == "segments_alone":
+        x["segment_k"] = None
+    elif bad == "segment_shape":
+        x["segment_k"] = x["segment_k"][:, 1:]
+    elif bad == "device":
+        x["k"] = x["k"].to("meta")
+    elif bad == "no_keys":
+        x["k"], x["v"] = x["k"][:, :0], x["v"][:, :0]
+        x["segment_k"] = x["segment_k"][:, :0]
+    with pytest.raises(ValueError):
+        pa._check(**x)
+
+
+@pytest.mark.parametrize("kind", ["causal", "encoder", "cross"])
+def test_attention_under_autograd_keeps_the_plain_path(kind):
+    """CPU tensors that require grad, grad enabled: ``attend`` is
+    ``flash_attention`` under autograd too (dispatch goes by device alone),
+    so ``attn_forward`` and ``cross_attn_forward`` return the plain path's
+    output and gradient."""
+    from unittest import mock
+
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.models import attention
+
+    cfg = smoke_config(get_config("yi-6b"))
+    p = attention.Attention(cfg, torch.float32, torch.Generator().manual_seed(1))
+    for w in p.parameters():
+        w.requires_grad_(True)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 10, cfg.d_model), generator=g)
+    enc = torch.randn((2, 14, cfg.d_model), generator=g)
+
+    def run(attend):
+        with mock.patch.object(attention, "attend", attend):
+            if kind == "cross":
+                out = attention.cross_attn_forward(p, x, attention.cross_kv(p, enc, cfg), cfg)
+            else:
+                out, _ = attention.attn_forward(p, x, cfg, causal=kind == "causal")
+        grads = torch.autograd.grad(out.square().sum(), list(p.parameters()))
+        return out, grads
+
+    before = dict(pa.LAUNCHES)
+    with mock.patch.object(pa, "flash_attention", wraps=pa.flash_attention) as plain:
+        out, grads = run(pa.attend)
+    assert plain.call_count == 1 and pa.LAUNCHES == before
+    want, want_grads = run(pa.flash_attention)
+    assert torch.equal(out, want)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
+
+
+@pytest.mark.parametrize("case", ["causal-yi", "segments-offset", "cross", "p_bf16"])
+@pytest.mark.parametrize("wrt", ["qkv", "q"])
+def test_prefill_attention_kernel_op_backward_is_the_plain_gradient(case, wrt):
+    """The kernel's autograd op (what ``attend`` runs on the card) with its
+    launch stood in for by the plain version, as the card's numbers stand
+    for it: its output is the launch's, and its backward recomputes the
+    plain version from the saved q, k and v and gives that version's
+    gradient, bit for bit, for each input that requires grad (None for the
+    rest)."""
+    from unittest import mock
+
+    from repro_torch.kernels import prefill_attention as pa
+
+    q, k, v, kw = _prefill_inputs(*PREFILL_CASES[case], seed=4)
+    full = dict(causal=True, window=None, logit_cap=None, q_offset=0, segment_q=None,
+                segment_k=None, kv_len=None, scale=None, p_bf16=False)
+    full.update(kw)
+    xs = [t.requires_grad_(n in wrt) for t, n in zip((q, k, v), "qkv")]
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(q.dtype)
+
+    def launch(q, k, v, **kw):
+        assert not torch.is_grad_enabled()  # an autograd op's forward records nothing
+        return pa.flash_attention(q, k, v, **kw)
+
+    with mock.patch.object(pa, "_launch", side_effect=launch) as kernel:
+        out = pa._Kernel.apply(*xs, full)
+        got = torch.autograd.grad(out, [x for x in xs if x.requires_grad], g)
+    assert kernel.call_count == 1
+    want_out = pa.flash_attention(*xs, **full)
+    want = torch.autograd.grad(want_out, [x for x in xs if x.requires_grad], g)
+    assert torch.equal(out, want_out.detach())
+    assert len(got) == len(wrt) and all(torch.equal(a, b) for a, b in zip(got, want))
