@@ -10,12 +10,13 @@ version); ``ops`` holds the public wrappers
 (``decode_batch_kernel``, ``encode_run``, ``write_headers``,
 ``encode_frames_batch``, ``encode_chunks_batch``, ...);
 ``decode_attention`` the decode step's append-and-attend
-(``csrc/decode_attention.cu``, beside its plain version), which
-``models.attention.attn_decode`` calls, and ``prefill_attention`` the
-prefill's attention (``csrc/prefill_attention.cu``, beside its plain
-version ``flash_attention``, which ``models.common`` re-exports), which
-``attn_forward`` and ``cross_attn_forward`` call; neither replaces a TPU
-kernel.
+(``csrc/decode_attention.cu``, beside its plain version and the plain
+``decode_attention``), which ``models.attention.attn_decode`` calls, and
+``prefill_attention`` the prefill's attention
+(``csrc/prefill_attention.cu``, beside its plain version
+``flash_attention`` and ``softcap``), which ``attn_forward`` and
+``cross_attn_forward`` call; ``models.common`` re-exports the plain
+functions, and neither kernel replaces a TPU kernel.
 Importing this package builds nothing: a kernel is built on its first
 launch.
 """

@@ -8,7 +8,7 @@ ring under a window; a row whose slot lies past the cache keeps its old
 K/V, as the reference's ``mode="drop"`` scatter), then attend ``q`` over
 the cache's first ``kv_len`` keys.  :func:`append_and_attend_plain` does it
 as the port always has: an advanced-index write, then
-``models.common.decode_attention`` (float32 casts of the whole cache, two
+:func:`decode_attention` (float32 casts of the whole cache, two
 einsums, a masked softmax).
 
 The kernel replaces no TPU kernel: the reference's ``decode_attention``
@@ -37,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build
+from .prefill_attention import NEG_INF, softcap
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"decode_attention": 0}
@@ -137,6 +138,28 @@ def _aligned(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, K, G, D)
+    k_cache: torch.Tensor,  # (B, T, K, D)
+    v_cache: torch.Tensor,  # (B, T, K, D)
+    kv_len: torch.Tensor,  # (B,) valid length
+    *,
+    logit_cap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token attention against a cache (no blocking needed)."""
+    B, T, K, D = k_cache.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    s = torch.einsum("bqkgd,btkd->bqkgt", q.float(), k_cache.float()) * scale
+    s = softcap(s, logit_cap)
+    pos = torch.arange(T, device=q.device)
+    valid = pos[None, :] < kv_len.expand(B)[:, None]
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgt,btkd->bqkgd", p, v_cache.float())
+    return out.to(q.dtype)
+
+
 def append_and_attend_plain(
     q: torch.Tensor,  # (B, 1, K, G, D)
     k: torch.Tensor,  # (B, K, D)
@@ -149,11 +172,9 @@ def append_and_attend_plain(
     logit_cap: Optional[float] = None,
 ) -> torch.Tensor:
     """Write ``k``/``v`` at ``pos`` (``pos % T`` under a window), dropping a
-    row whose slot is ``>= T``, then ``models.common.decode_attention`` over
+    row whose slot is ``>= T``, then :func:`decode_attention` over
     ``kv_len`` keys.  The drop is a select on the device, so it needs no
     host sync.  Returns (B, 1, K, G, D) in q's dtype."""
-    from ..models.common import decode_attention
-
     B, T = k_cache.shape[:2]
     slot = pos % T if window is not None else pos  # ring buffer for SWA
     keep = (slot < T)[:, None, None]

@@ -45,6 +45,13 @@ from . import _build
 #: a masked score: its exp is 0 against any row max a real key sets
 NEG_INF = -1e30
 
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"prefill_attention": 0}
 
@@ -171,8 +178,7 @@ def flash_attention(
             bk = kb.shape[1]
             k_pos = k0 + torch.arange(bk, device=dev)
             s = torch.einsum("bqkgd,btkd->bqkgt", qb, kb) * scale
-            if logit_cap is not None:  # models.common.softcap
-                s = logit_cap * torch.tanh(s / logit_cap)
+            s = softcap(s, logit_cap)
             ok = (k_pos < t_end)[None, :].expand(bq, bk)
             if causal:
                 ok = ok & (q_pos[:, None] >= k_pos[None, :])

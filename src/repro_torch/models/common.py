@@ -18,8 +18,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-# the blocked prefill attention, re-exported: it lives beside its kernel
-from ..kernels.prefill_attention import NEG_INF, flash_attention  # noqa: F401
+# the plain attentions and softcap, re-exported: they live beside their kernels
+from ..kernels.decode_attention import decode_attention  # noqa: F401
+from ..kernels.prefill_attention import NEG_INF, flash_attention, softcap  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # dtype / init helpers
@@ -149,39 +150,6 @@ def act_fn(name: str):
         "geglu": _gelu_tanh,
         "relu": F.relu,
     }[name]
-
-
-def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
-    if cap is None:
-        return x
-    return cap * torch.tanh(x / cap)
-
-
-# ---------------------------------------------------------------------------
-# Decode attention (plain torch)
-# ---------------------------------------------------------------------------
-
-
-def decode_attention(
-    q: torch.Tensor,  # (B, 1, K, G, D)
-    k_cache: torch.Tensor,  # (B, T, K, D)
-    v_cache: torch.Tensor,  # (B, T, K, D)
-    kv_len: torch.Tensor,  # (B,) valid length
-    *,
-    logit_cap: Optional[float] = None,
-    scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Single-token attention against a cache (no blocking needed)."""
-    B, T, K, D = k_cache.shape
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    s = torch.einsum("bqkgd,btkd->bqkgt", q.float(), k_cache.float()) * scale
-    s = softcap(s, logit_cap)
-    pos = torch.arange(T, device=q.device)
-    valid = pos[None, :] < kv_len.expand(B)[:, None]
-    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bqkgt,btkd->bqkgd", p, v_cache.float())
-    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

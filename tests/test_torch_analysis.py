@@ -38,6 +38,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import idl as tidl
 from repro_torch.fabric import Fabric, FabricConfig
 from repro_torch.launch import serve as tserve
+import torch_parity  # noqa: F401 (process setup: a share of the cores, TF32 off)
 
 
 def _rows(findings):

@@ -22,8 +22,6 @@ from repro import optim as joptim
 from repro.checkpoint import load_checkpoint as j_load
 from repro.checkpoint import restore_into as j_restore_into
 from repro.checkpoint import save_checkpoint as j_save
-from repro.configs import get_config as j_get_config
-from repro.configs import smoke_config as j_smoke_config
 from repro.models import init_params as j_init_params
 from repro_torch import optim as toptim
 from repro_torch.checkpoint import (
@@ -34,8 +32,8 @@ from repro_torch.checkpoint import (
     save_checkpoint,
 )
 from repro_torch.checkpoint.store import FRAME_PAYLOAD
-from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import opt_state_from_jax, params_from_jax
+from torch_parity import twin_configs
 
 
 def _trees():
@@ -58,10 +56,8 @@ def _trees():
 def _model_states(moments):
     """yi-6b's smoke model and an AdamW state after one step, the
     reference's and the port's copy of it."""
-    import dataclasses
-    jcfg = dataclasses.replace(j_smoke_config(j_get_config("yi-6b")), n_layers=2,
-                               dtype="bfloat16")
-    cfg = dataclasses.replace(smoke_config(get_config("yi-6b")), n_layers=2, dtype="bfloat16")
+    jcfg, cfg = twin_configs("yi-6b", n_layers=2, dtype="bfloat16")
+    # not twin_models: what is carried over is the parameters after one AdamW step
     jp = j_init_params(jcfg, jax.random.PRNGKey(0))
     g = jax.tree.map(lambda x: jnp.full(x.shape, 1e-2, jnp.float32), jp)
     ocfg = joptim.AdamWConfig(moments=moments)

@@ -17,6 +17,7 @@ import repro.core as jc
 import repro.data.schemas as jschemas
 import repro_torch.core as tc
 import repro_torch.data.schemas as tschemas
+import torch_parity  # noqa: F401 (process setup: a share of the cores, TF32 off)
 
 ROM_FIELDS = ("kind", "nbytes", "child", "last", "tag", "tag_start", "tag_end",
               "emit_end", "list_level", "depth")

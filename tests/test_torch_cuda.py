@@ -24,6 +24,7 @@ from repro_torch.kernels import frame_pack as fp
 from repro_torch.kernels import ops, phit_unpack as pu
 from repro_torch.launch import serve
 from repro_torch.models import init_params
+import torch_parity  # noqa: F401 (process setup: a share of the cores, TF32 off)
 
 pytestmark = pytest.mark.cuda
 
@@ -35,8 +36,6 @@ WIRE_WORDS = 1600
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 

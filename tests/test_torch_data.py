@@ -36,6 +36,7 @@ from repro_torch.data.pipeline import batch_plan, decode_batch, finalize_batch, 
 from repro_torch.data.schemas import batch_schema
 from repro_torch.device import NoCudaError
 from repro_torch.kernels import ops
+import torch_parity  # noqa: F401 (process setup: a share of the cores, TF32 off)
 
 PATHS = ["rows.elem.tokens.elem", "rows.elem.segids.elem"]
 

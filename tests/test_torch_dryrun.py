@@ -25,7 +25,6 @@ import torch
 
 from repro.configs import SHAPES as J_SHAPES
 from repro.configs import all_archs, get_config as j_get_config
-from repro.configs import smoke_config as j_smoke_config
 from repro.configs.base import ShapeConfig as JShapeConfig
 from repro.launch import steps as jsteps
 from repro.launch.dryrun import model_flops as j_model_flops
@@ -40,16 +39,12 @@ from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_tr
 from repro_torch.models import init_cache, init_params
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime.sharding import leaf_paths
+from torch_parity import twin_configs
 
 MESH = ((2, 2, 2), ("pod", "data", "model"))
 #: the smoke widths, as ``--set`` overrides of a registry config
 SMOKE = ("d_model", "n_heads", "n_kv", "head_dim", "d_ff", "vocab", "moe_experts", "window",
          "enc_layers", "enc_seq", "vision_tokens", "vision_dim", "ssm_state", "ssm_head")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _no_tf32():
-    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 # ---------------------------------------------------------------------------
@@ -108,9 +103,7 @@ def _ref_step_dot_flops(jcfg, shape):
 
 @pytest.mark.parametrize("kind,microbatch", [("train", 2), ("prefill", 1), ("decode", 1)])
 def test_step_dot_flops_match_reference_analyzer(kind, microbatch):
-    ch = {"n_layers": 2, "microbatch": microbatch}
-    jcfg = dataclasses.replace(j_smoke_config(j_get_config("yi-6b")), **ch)
-    cfg = dataclasses.replace(smoke_config(get_config("yi-6b")), **ch)
+    jcfg, cfg = twin_configs("yi-6b", n_layers=2, microbatch=microbatch)
     ref = _ref_step_dot_flops(jcfg, JShapeConfig("x", 64, 4, kind))
     rep, _ = dryrun._trace(cfg, ShapeConfig("x", 64, 4, kind))
     assert abs(rep.dot_flops - ref) <= 0.01 * ref, (rep.dot_flops, ref)

@@ -29,6 +29,7 @@ from repro_torch.core import lanes_u32
 from repro_torch.device import NoCudaError
 from repro_torch.kernels import frame_pack as fp
 from repro_torch.kernels import ops
+import torch_parity  # noqa: F401 (process setup: a share of the cores, TF32 off)
 
 # the schema of tests/test_kernels.py's end-to-end decode
 KERNEL_TEST_SCHEMA = {

@@ -44,25 +44,18 @@ from repro.configs import smoke_config as j_smoke_config
 from repro.kernels import decode_message_kernel as j_decode_message_kernel
 from repro.kernels import wire_to_u32 as j_wire_to_u32
 from repro.launch import serve as jserve
-from repro.models import init_params as j_init_params
 from repro.models.ffn import init_moe_ffn as j_init_moe_ffn
 from repro.models.ffn import moe_capacity as j_moe_capacity
 from repro.models.ffn import moe_ffn as j_moe_ffn
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.launch.train import train_loop
-from repro_torch.models import params_from_jax
 from repro_torch.models.ffn import init_moe_ffn
+from torch_parity import twin_models
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = ROOT / "examples"
 TWINS = ["torch_quickstart", "torch_serve_requests", "torch_typed_streams",
          "torch_moe_dispatch", "torch_train_lm"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _no_tf32():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def _twin(name):
@@ -200,13 +193,6 @@ def test_moe_all_to_all_matches_reference_fabric():
 # ---------------------------------------------------------------------------
 
 
-def _reference_model(n_layers):
-    jcfg = dataclasses.replace(j_smoke_config(j_get_config("yi-6b")), n_layers=n_layers)
-    cfg = dataclasses.replace(smoke_config(get_config("yi-6b")), n_layers=n_layers)
-    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, jparams, cfg, params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
-
-
 def _reference_burst(cfg, pad_to):
     """The reference example's burst, built as it builds it."""
     rng = np.random.default_rng(0)
@@ -221,7 +207,7 @@ def _reference_burst(cfg, pad_to):
 
 def test_serve_requests_matches_reference():
     sr = _twin("torch_serve_requests")
-    jcfg, jparams, cfg, tparams = _reference_model(sr.N_LAYERS)
+    jcfg, jparams, cfg, tparams = twin_models("yi-6b", n_layers=sr.N_LAYERS)
     wires = sr.burst(cfg)
     assert wires == _reference_burst(jcfg, sr.PAD_TO)
     kw = dict(max_new=sr.MAX_NEW, pad_to=sr.PAD_TO, slots=8)
@@ -257,7 +243,7 @@ def test_typed_streams_matches_reference():
         assert getattr(plan, f.name) == getattr(jplan, f.name), f.name
     assert (plan.n_leaves, plan.elem_words) == (2, 2)
 
-    jcfg, jparams, cfg, tparams = _reference_model(ts.N_LAYERS)
+    jcfg, jparams, cfg, tparams = twin_models("yi-6b", n_layers=ts.N_LAYERS)
     wires = ts.burst(cfg)
     out = ts.streamed_logprobs(tparams, cfg, wires, "cpu")
     want = jserve.serve_requests(jparams, jcfg, wires, max_new=ts.MAX_NEW, pad_to=ts.PAD_TO,

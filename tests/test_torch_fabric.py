@@ -29,6 +29,7 @@ from repro_torch.core import lanes_u32
 from repro_torch.fabric import Fabric, FabricConfig, FaultPlan, frames
 from repro_torch.kernels import frame_pack as tpack
 from repro_torch.kernels import ops
+import torch_parity  # noqa: F401 (process setup: a share of the cores, TF32 off)
 
 
 def _lanes(a: np.ndarray) -> torch.Tensor:

@@ -35,6 +35,7 @@ from repro_torch.models import cache_zeros, decode_step, forward, init_params, p
 from repro_torch.models import params_from_jax, plan_period, prefill, stack_layers
 from repro_torch.models import ffn as t_ffn
 from repro_torch.models import model as t_model
+from torch_parity import twin_configs, twin_models
 
 RTOL = ATOL = 1e-4
 ARCHS = ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "gemma2-27b", "jamba-1.5-large-398b",
@@ -43,24 +44,17 @@ LAYERS = {"gemma2-27b": 2, "xlstm-125m": 2, "jamba-1.5-large-398b": 5}
 MOE_ARCHS = ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b"]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _no_tf32():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def _cut(arch, changes):
+    """``changes``, with the depth ``LAYERS`` gives ``arch`` unless they set one."""
+    return {"n_layers": LAYERS[arch], **changes} if arch in LAYERS else changes
 
 
 def _configs(arch, **changes):
-    jcfg, cfg = j_smoke_config(j_get_config(arch)), smoke_config(get_config(arch))
-    changes.setdefault("n_layers", LAYERS.get(arch, jcfg.n_layers))
-    jcfg, cfg = dataclasses.replace(jcfg, **changes), dataclasses.replace(cfg, **changes)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    return jcfg, cfg
+    return twin_configs(arch, **_cut(arch, changes))
 
 
 def _models(arch, **changes):
-    jcfg, cfg = _configs(arch, **changes)
-    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, jparams, cfg, params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return twin_models(arch, **_cut(arch, changes))
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -129,6 +123,7 @@ def test_params_carried_over(models):
 
 def test_params_from_jax_refuses_another_dtype():
     jcfg, cfg = _configs("xlstm-125m")
+    # not twin_models: one leaf of the reference's tree is spoiled before the carry-over
     tree = jax.tree.map(np.asarray, j_init_params(jcfg, jax.random.PRNGKey(0)))
     tree["layers"][1]["slstm"]["wi"] = tree["layers"][1]["slstm"]["wi"].astype(np.float16)
     with pytest.raises(ValueError, match="layers.1.slstm.wi"):

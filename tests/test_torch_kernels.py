@@ -40,6 +40,7 @@ from repro_torch.core import stack_wires
 from repro_torch.data.schemas import request_schema
 from repro_torch.kernels import frame_pack as fp
 from repro_torch.kernels import ops, phit_unpack as pu
+import torch_parity  # noqa: F401 (process setup: a share of the cores, TF32 off)
 
 NBYTES = [1, 3, 4, 5, 8, 13, 16]
 WIRE_BYTES = 4 * 1600

@@ -7,8 +7,6 @@ products in another order (matmul blocking, softmax reductions), which
 moves float32 results in their last bits, and those differences grow
 through the layers.  Greedy tokens must be identical.
 """
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -20,28 +18,18 @@ from repro.configs import get_config as j_get_config
 from repro.configs import smoke_config as j_smoke_config
 from repro.models import decode_step as j_decode_step
 from repro.models import forward as j_forward
-from repro.models import init_params as j_init_params
 from repro.models import prefill as j_prefill
 from repro_torch.configs import get_config, smoke_config
-from repro_torch.models import decode_step, forward, init_cache, init_params
-from repro_torch.models import params_from_jax, prefill
+from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
+from torch_parity import twin_configs, twin_models
 
 RTOL = ATOL = 1e-4
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _no_tf32():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 @pytest.fixture(scope="module")
 def models():
-    jcfg = j_smoke_config(j_get_config("yi-6b"))
-    cfg = smoke_config(get_config("yi-6b"))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg) and cfg.dtype == "float32"
-    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    jcfg, jparams, cfg, tparams = twin_models("yi-6b")
+    assert cfg.dtype == "float32"
     return jcfg, jparams, cfg, tparams
 
 
@@ -142,10 +130,7 @@ def _decode_configs(G: int, mode: str):
         changes["window"] = DECODE_T
     if mode == "softcap":
         changes["attn_softcap"] = 50.0
-    jcfg = dataclasses.replace(j_smoke_config(j_get_config("yi-6b")), **changes)
-    cfg = dataclasses.replace(smoke_config(get_config("yi-6b")), **changes)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    return jcfg, cfg
+    return twin_configs("yi-6b", **changes)
 
 
 def _decode_inputs(cfg, mode: str, seed: int = 0):

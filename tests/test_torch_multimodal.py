@@ -22,57 +22,36 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 import torch
 
-from repro.configs import get_config as j_get_config
-from repro.configs import smoke_config as j_smoke_config
 from repro.models import attention as j_attn
 from repro.models import decode_step as j_decode_step
 from repro.models import forward as j_forward
 from repro.models import init_params as j_init_params
 from repro.models import model as j_model
 from repro.models import prefill as j_prefill
-from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import cache_zeros, decode_step, forward, init_cache, init_params
 from repro_torch.models import param_count, params_from_jax, prefill
 from repro_torch.models import attention as t_attn
 from repro_torch.models import model as t_model
+from torch_parity import twin_configs, twin_models
 
 RTOL = ATOL = 1e-4
 ARCHS = ["phi-3-vision-4.2b", "whisper-tiny"]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _no_tf32():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
-def _configs(arch, **changes):
-    jcfg, cfg = j_smoke_config(j_get_config(arch)), smoke_config(get_config(arch))
-    jcfg, cfg = dataclasses.replace(jcfg, **changes), dataclasses.replace(cfg, **changes)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    return jcfg, cfg
-
-
-def _models(arch):
-    jcfg, cfg = _configs(arch)
-    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, jparams, cfg, params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
-
-
 @pytest.fixture(scope="module", params=ARCHS)
 def models(request):
     """Both packages' models of one architecture, same parameters."""
-    return _models(request.param)
+    return twin_models(request.param)
 
 
 @pytest.fixture(scope="module")
 def whisper():
-    return _models("whisper-tiny")
+    return twin_models("whisper-tiny")
 
 
 @pytest.fixture(scope="module")
 def vlm():
-    return _models("phi-3-vision-4.2b")
+    return twin_models("phi-3-vision-4.2b")
 
 
 def _batch(cfg, B, S, seed, modality=True):
@@ -141,7 +120,7 @@ def test_param_names_shapes_dtypes_bf16(arch):
     """At a bfloat16 config the port's parameters have the reference's
     names, shapes and dtypes: ``vision_proj``, ``encoder.layers.*``,
     ``encoder.final_norm`` and ``cross.*.{ln,attn}`` included."""
-    jcfg, cfg = _configs(arch, dtype="bfloat16")
+    jcfg, cfg = twin_configs(arch, dtype="bfloat16")
     spec = jax.eval_shape(lambda: j_init_params(jcfg, jax.random.PRNGKey(0)))
     want = {k: (tuple(v.shape), str(v.dtype)) for k, v in _flat(spec).items()}
     model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -162,7 +141,8 @@ def test_params_carried_over(models):
 
 
 def test_params_from_jax_refuses_a_wrong_cross_shape():
-    jcfg, cfg = _configs("whisper-tiny")
+    jcfg, cfg = twin_configs("whisper-tiny")
+    # not twin_models: one leaf of the reference's tree is spoiled before the carry-over
     tree = jax.tree.map(np.asarray, j_init_params(jcfg, jax.random.PRNGKey(0)))
     tree["cross"][1]["attn"]["wq"] = tree["cross"][1]["attn"]["wq"][:, :-1]
     with pytest.raises(ValueError, match="cross.1.attn.wq"):
@@ -362,7 +342,7 @@ def test_segment_ids_still_raise(vlm):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_cache_matches_reference(arch):
-    jcfg, cfg = _configs(arch)
+    jcfg, cfg = twin_configs(arch)
     want = _flat(j_model.init_cache(jcfg, 2, 10))
     got = _flat(init_cache(cfg, 2, 10, "cpu"))
     assert {k: tuple(v.shape) for k, v in got.items()} == {

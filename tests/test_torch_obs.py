@@ -33,6 +33,7 @@ from repro_torch.obs import report as treport
 from repro_torch.obs import slo as tslo
 from repro_torch.obs import spans as tspans
 from repro_torch.obs import trace as ttrace
+import torch_parity  # noqa: F401 (process setup: a share of the cores, TF32 off)
 
 
 def _signature(obj):

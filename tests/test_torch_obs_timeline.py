@@ -26,6 +26,7 @@ from repro_torch.models import ffn as tffn
 from repro_torch.models.model import init_params
 from repro_torch.obs import MetricsRegistry, SpanTracker, TraceRecorder, validate_trace
 from repro_torch.obs import timeline as tl
+import torch_parity  # noqa: F401 (process setup: a share of the cores, TF32 off)
 
 _KW = dict(max_new=4, pad_to=16, slots=4, device="cpu")
 

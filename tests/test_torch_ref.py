@@ -11,6 +11,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref as tref
+import torch_parity  # noqa: F401 (process setup: a share of the cores, TF32 off)
 
 
 def _wire(n_words, seed):

@@ -12,7 +12,6 @@ math: bit for bit against the same stage function applied microbatch by
 microbatch, and to ``rtol=atol=1e-5`` against the reference's own jnp
 oracle (float32 matmuls in another library).
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -23,22 +22,18 @@ import torch
 from jax.experimental.shard_map import shard_map
 from jax.sharding import PartitionSpec as JP
 
-from repro.configs import get_config as j_get_config
-from repro.configs import smoke_config as j_smoke_config
-from repro.models import init_params as j_init_params
 from repro.models.model import layer_forward as j_layer_forward
 from repro.runtime import channels as jch
 from repro.runtime import compress as jcomp
 from repro.runtime import pipeline as jpipe
-from repro_torch.configs import get_config, smoke_config
 from repro_torch.launch.costanalysis import analyze
 from repro_torch.launch.mesh import Mesh
-from repro_torch.models import params_from_jax
 from repro_torch.models.common import keystr, path_parts
 from repro_torch.models.model import layer_forward
 from repro_torch.runtime import channels as tch
 from repro_torch.runtime import compress as tcomp
 from repro_torch.runtime import pipeline as tpipe
+from torch_parity import twin_models
 
 
 def _lanes(a: np.ndarray) -> torch.Tensor:
@@ -277,10 +272,7 @@ def test_gpipe_schedule():
 def test_split_and_stack_match_reference():
     for n, k in [(8, 4), (7, 2), (3, 3), (5, 1)]:
         assert tpipe.split_stages(list(range(n)), k) == jpipe.split_stages(list(range(n)), k)
-    jcfg = dataclasses.replace(j_smoke_config(j_get_config("yi-6b")), n_layers=4)
-    cfg = dataclasses.replace(smoke_config(get_config("yi-6b")), n_layers=4)
-    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    jcfg, jparams, cfg, params = twin_models("yi-6b", n_layers=4)
     ref = jpipe.stack_stage_params(jpipe.split_stages(jparams["layers"], 2))
     got = tpipe.stack_stage_params(tpipe.split_stages(list(params.layers), 2))
     flat, _ = jax.tree_util.tree_flatten_with_path(ref)
@@ -307,10 +299,7 @@ def test_gpipe_runs_model_layers():
     """A smoke yi-6b's 4 layers in 2 stages of 2, 4 microbatches: bit for
     bit the layers applied to each microbatch in turn, and within 1e-5 of
     the reference's ``layer_forward`` on the same weights."""
-    jcfg = dataclasses.replace(j_smoke_config(j_get_config("yi-6b")), n_layers=4)
-    cfg = dataclasses.replace(smoke_config(get_config("yi-6b")), n_layers=4)
-    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    jcfg, jparams, cfg, params = twin_models("yi-6b", n_layers=4)
     runner = _LayerRunner(params.layers[0], cfg)
 
     def stage_fn(p, x):

@@ -10,7 +10,6 @@ scheduler's emission order, the batched request DES, the package's import
 isolation (no JAX, nothing of ``repro``) and the absence of a hidden CPU
 fallback.
 """
-import dataclasses
 import os
 import subprocess
 import sys
@@ -22,38 +21,26 @@ import pytest
 jax = pytest.importorskip("jax")
 import torch
 
-from repro.configs import get_config as j_get_config
-from repro.configs import smoke_config as j_smoke_config
 from repro.launch import serve as jserve
-from repro.models import init_params as j_init_params
 from repro.runtime.scheduler import ContinuousBatcher as JBatcher
 from repro.runtime.scheduler import SchedulerConfig as JSched
-from repro_torch.configs import get_config, smoke_config
 from repro_torch.device import NoCudaError
 from repro_torch.launch import serve as tserve
-from repro_torch.models import params_from_jax
 from repro_torch.runtime.scheduler import ContinuousBatcher, SchedulerConfig
+from torch_parity import twin_models
 
 ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
 def models():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    jcfg = j_smoke_config(j_get_config("yi-6b"))
-    cfg = smoke_config(get_config("yi-6b"))
-    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, jparams, cfg, params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return twin_models("yi-6b")
 
 
 @pytest.fixture(scope="module")
 def two_layer_models():
     """The smoke yi-6b cut to 2 layers, both packages, same parameters."""
-    jcfg = dataclasses.replace(j_smoke_config(j_get_config("yi-6b")), n_layers=2)
-    cfg = dataclasses.replace(smoke_config(get_config("yi-6b")), n_layers=2)
-    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, jparams, cfg, params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return twin_models("yi-6b", n_layers=2)
 
 
 def _wires(cfg, rng, n_prompts=(2, 0, 3, 1)):

@@ -13,43 +13,27 @@ xlstm's sharded plane (no capacity-bounded routing, so placement cannot
 change an answer) must equal the reference's sharded plane and the port's
 batched plane.  The serve CLI takes every one of these architectures.
 """
-import dataclasses
 
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
-import torch
 
-from repro.configs import get_config as j_get_config
-from repro.configs import smoke_config as j_smoke_config
 from repro.launch import serve as jserve
-from repro.models import init_params as j_init_params
 from repro.runtime.scheduler import ContinuousBatcher as JBatcher
 from repro.runtime.scheduler import SchedulerConfig as JSched
-from repro_torch.configs import get_config, smoke_config
 from repro_torch.launch import serve as tserve
-from repro_torch.models import params_from_jax
 from repro_torch.runtime.scheduler import ContinuousBatcher, SchedulerConfig
+from torch_parity import twin_models
 
 ARCHS = ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "gemma2-27b", "jamba-1.5-large-398b",
          "xlstm-125m", "granite-34b", "stablelm-3b"]
 LAYERS = {"gemma2-27b": 2, "xlstm-125m": 2, "jamba-1.5-large-398b": 5}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _no_tf32():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 def _models(arch, n_layers=None):
     n = n_layers or LAYERS.get(arch)
-    jcfg, cfg = j_smoke_config(j_get_config(arch)), smoke_config(get_config(arch))
-    if n:
-        jcfg, cfg = dataclasses.replace(jcfg, n_layers=n), dataclasses.replace(cfg, n_layers=n)
-    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, jparams, cfg, params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return twin_models(arch, **({"n_layers": n} if n else {}))
 
 
 def _wires(cfg, seed, n_prompts=(2, 0, 3, 1), lens=(4, 20)):

@@ -14,42 +14,27 @@ reference streamed).  Tick by tick the slot cache — K/V with the prefix
 rows, ``pos``, ``enc_kv`` — agrees with the reference's to ``rtol = atol =
 1e-4``.  The serve CLI takes both architectures.
 """
-import dataclasses
 
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
-import torch
 
-from repro.configs import get_config as j_get_config
-from repro.configs import smoke_config as j_smoke_config
 from repro.launch import serve as jserve
-from repro.models import init_params as j_init_params
 from repro.runtime.scheduler import ContinuousBatcher as JBatcher
 from repro.runtime.scheduler import SchedulerConfig as JSched
-from repro_torch.configs import get_config, smoke_config
 from repro_torch.launch import serve as tserve
-from repro_torch.models import params_from_jax
 from repro_torch.runtime.scheduler import ContinuousBatcher, SchedulerConfig
+from torch_parity import twin_models
 
 ARCHS = ["phi-3-vision-4.2b", "whisper-tiny"]
 KW = dict(max_new=4, pad_to=16, slots=4)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _no_tf32():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 @pytest.fixture(scope="module", params=ARCHS)
 def models(request):
     """Both packages' models of one architecture, same parameters."""
-    jcfg = dataclasses.replace(j_smoke_config(j_get_config(request.param)), n_layers=2)
-    cfg = dataclasses.replace(smoke_config(get_config(request.param)), n_layers=2)
-    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, jparams, cfg, params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return twin_models(request.param, n_layers=2)
 
 
 def _wires(cfg, seed, n_prompts=(2, 0, 3, 1), lens=(4, 20)):

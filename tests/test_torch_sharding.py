@@ -31,16 +31,16 @@ from repro.launch import steps as jsteps
 from repro.models import ffn as jffn
 from repro.optim import adamw_init as j_adamw_init
 from repro.models import forward as j_forward
-from repro.models import init_params as j_init_params
 from repro.runtime import actshard as jact
 from repro.runtime import sharding as jsh
 from repro_torch.configs import SHAPES, get_config, smoke_config
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch.mesh import Mesh, make_debug_mesh, make_production_mesh
 from repro_torch.models import ffn as tffn
-from repro_torch.models import forward, params_from_jax
+from repro_torch.models import forward
 from repro_torch.runtime import actshard as tact
 from repro_torch.runtime import sharding as tsh
+from torch_parity import twin_models
 
 MESHES = [((2, 2, 2), ("pod", "data", "model")), ((16, 16), ("data", "model")),
           ((2, 16, 16), ("pod", "data", "model"))]
@@ -250,11 +250,7 @@ def test_models_constrain_at_the_reference_sites(scan):
     embedding's output, every layer's output and the logits (a scanned
     reference traces its period body once, so there the kinds and shapes
     are compared as a set)."""
-    jcfg = dataclasses.replace(j_smoke_config(j_get_config("yi-6b")), n_layers=2,
-                               scan_layers=scan)
-    cfg = dataclasses.replace(smoke_config(get_config("yi-6b")), n_layers=2, scan_layers=scan)
-    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    jcfg, jparams, cfg, params = twin_models("yi-6b", n_layers=2, scan_layers=scan)
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16)).astype(np.int32)
     ref = _records(jact.use_constrainer,
                    lambda: j_forward(jparams, jcfg, {"tokens": jnp.asarray(toks)}))

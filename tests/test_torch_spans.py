@@ -21,29 +21,22 @@ the JAX package.
 Runs at the reference's smoke sizes: yi-6b cut to 2 layers, ``max_new=4``,
 ``pad_to=8``, ``n_shards=2``, the reference's parameters carried over.
 """
-import dataclasses
 import json
 
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
-import torch
 
-from repro.configs import get_config as j_get_config
-from repro.configs import smoke_config as j_smoke_config
 from repro.fabric import Fabric as JFabric
 from repro.fabric import FabricConfig as JConfig
 from repro.fabric import FaultPlan as JFaultPlan
 from repro.launch import serve as jserve
-from repro.models import init_params as j_init_params
 from repro.obs import SpanTracker as JSpanTracker
 from repro.obs import TraceRecorder as JTraceRecorder
-from repro_torch.configs import get_config, smoke_config
 from repro_torch.fabric import Fabric, FabricConfig, FaultPlan
 from repro_torch.fabric.frames import HDR_ROUTE
 from repro_torch.launch import serve as tserve
-from repro_torch.models import params_from_jax
 from repro_torch.obs import (
     MetricsRegistry,
     SpanTracker,
@@ -51,6 +44,7 @@ from repro_torch.obs import (
     tick_breakdown,
     validate_trace,
 )
+from torch_parity import twin_models
 
 #: host-clock fields of a span export (everything else must match)
 _CLOCK_KEYS = ("ts_us", "ttft_s")
@@ -195,11 +189,7 @@ _KW = dict(max_new=4, pad_to=8, slots=4, n_shards=2)
 
 @pytest.fixture(scope="module")
 def serve_setup():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    jcfg = dataclasses.replace(j_smoke_config(j_get_config("yi-6b")), n_layers=2)
-    cfg = dataclasses.replace(smoke_config(get_config("yi-6b")), n_layers=2)
-    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    jcfg, jparams, cfg, tparams = twin_models("yi-6b", n_layers=2)
     rng = np.random.default_rng(1)
     wires = []
     for r in range(3):

@@ -18,7 +18,6 @@ Tokens and wires are compared bit for bit; float32 logprobs within
 the last ulp).  The CUDA kernel itself is held to its plain version on the
 card by ``tests/test_torch_cuda.py``.
 """
-import dataclasses
 import importlib
 import pathlib
 
@@ -29,8 +28,6 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 import torch
 
-from repro.configs import get_config as j_get_config
-from repro.configs import smoke_config as j_smoke_config
 from repro.fabric import Fabric as JFabric
 from repro.fabric import FabricConfig as JConfig
 from repro.fabric import FaultPlan as JFaultPlan
@@ -38,20 +35,18 @@ from repro.kernels import frame_pack as jpack
 from repro.kernels import ops as jops
 from repro.launch import serve as jserve
 from repro.launch.steps import cached_serve_steps as j_cached_serve_steps
-from repro.models import init_params as j_init_params
 from repro.runtime.scheduler import ContinuousBatcher as JBatcher
 from repro.runtime.scheduler import SchedulerConfig as JSched
 from repro import stream as jstream
 from repro_torch import stream as tstream
-from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import Schema, lanes_u32
 from repro_torch.fabric import Fabric, FabricConfig, FaultPlan
 from repro_torch.kernels import frame_pack as tpack
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as tserve
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
-from repro_torch.models import params_from_jax
 from repro_torch.runtime.scheduler import ContinuousBatcher, SchedulerConfig
+from torch_parity import twin_models
 
 # the packages' ``core`` exports a function named ``stream_plans`` too
 jsp = importlib.import_module("repro.core.stream_plans")
@@ -307,12 +302,7 @@ def test_chunk_lane_reader_match_reference():
 def setup():
     """The smoke yi-6b cut to 2 layers in both packages (same parameters),
     four requests of two prompts, and the port's batched-plane answer."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    jcfg = dataclasses.replace(j_smoke_config(j_get_config("yi-6b")), n_layers=2)
-    cfg = dataclasses.replace(smoke_config(get_config("yi-6b")), n_layers=2)
-    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    jcfg, jparams, cfg, tparams = twin_models("yi-6b", n_layers=2)
     r = np.random.default_rng(0)
     wires = [tserve.encode_request(i, [list(map(int, r.integers(2, cfg.vocab, 12)))
                                        for _ in range(2)]) for i in range(4)]

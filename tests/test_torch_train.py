@@ -40,46 +40,36 @@ import torch
 
 from repro import optim as joptim
 from repro.configs import all_archs as j_all_archs
-from repro.configs import get_config as j_get_config
-from repro.configs import smoke_config as j_smoke_config
 from repro.launch.steps import make_train_step as j_make_train_step
 from repro.models import common as jcommon
 from repro.models import forward as j_forward
-from repro.models import init_params as j_init_params
 from repro.models import loss_fn as j_loss_fn
 from repro_torch import optim as toptim
 from repro_torch.checkpoint import CheckpointManager, load_checkpoint
-from repro_torch.configs import get_config, smoke_config
 from repro_torch.data import SyntheticCorpus, pack_documents
 from repro_torch.data.pipeline import finalize_batch
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import by_ref_path, forward, loss_fn, opt_state_from_jax
 from repro_torch.models import params_from_jax
 from repro_torch.models import common as tcommon
+from torch_parity import twin_configs, twin_models
 
 ROOT = Path(__file__).resolve().parents[1]
 LAYERS = {"gemma2-27b": 2, "xlstm-125m": 2, "jamba-1.5-large-398b": 5}
 B, S = 2, 24
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _no_tf32():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def _cut(arch, changes):
+    """``changes``, with the depth ``LAYERS`` gives ``arch`` unless they set one."""
+    return {"n_layers": LAYERS[arch], **changes} if arch in LAYERS else changes
 
 
 def _configs(arch, **changes):
-    jcfg, cfg = j_smoke_config(j_get_config(arch)), smoke_config(get_config(arch))
-    changes.setdefault("n_layers", LAYERS.get(arch, jcfg.n_layers))
-    jcfg, cfg = dataclasses.replace(jcfg, **changes), dataclasses.replace(cfg, **changes)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    return jcfg, cfg
+    return twin_configs(arch, **_cut(arch, changes))
 
 
 def _models(arch, **changes):
-    jcfg, cfg = _configs(arch, **changes)
-    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, jparams, cfg, params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return twin_models(arch, **_cut(arch, changes))
 
 
 def _packed_batch(cfg, seed, batch=B, seq=S):
@@ -237,11 +227,12 @@ def test_remat_changes_no_value(arch, scan):
     grads, bit for bit, and the checkpointed layers really recompute."""
     _, cfg = _configs(arch, scan_layers=scan)
     batch = _both(_packed_batch(cfg, seed=7))[1]
+    # the parameters drawn at the plain config, carried over at each variant of it
+    tree = jax.tree.map(np.asarray, _models(arch)[1])
     outs = {}
     for remat, policy in ((False, "nothing"), (True, "nothing"), (True, "dots")):
         c = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
-        params = params_from_jax(jax.tree.map(np.asarray, j_init_params(
-            _configs(arch)[0], jax.random.PRNGKey(0))), c, "cpu")
+        params = params_from_jax(tree, c, "cpu")
         outs[remat, policy] = toptim.microbatched_grads(
             lambda p, b: loss_fn(p, c, b), params, batch, 1)[:2]
     base_loss, base_grads = outs[False, "nothing"]
@@ -255,10 +246,8 @@ def test_remat_recomputes_under_autograd(monkeypatch):
     """With remat on, each layer's forward runs again in the backward
     pass; with it off, or without autograd, once."""
     from repro_torch.models import model as tmodel
-    _, cfg = _configs("yi-6b")
+    _, _, cfg, params = _models("yi-6b")
     batch = _both(_packed_batch(cfg, seed=7))[1]
-    params = params_from_jax(jax.tree.map(np.asarray, j_init_params(
-        _configs("yi-6b")[0], jax.random.PRNGKey(0))), cfg, "cpu")
     calls = []
     real = tmodel.layer_forward
     monkeypatch.setattr(tmodel, "layer_forward", lambda *a, **k: calls.append(1) or real(*a, **k))
@@ -517,10 +506,10 @@ def test_make_train_step_refuses_mesh_arguments():
 
 
 def _start_train(args):
-    """The CLI on the host, one intra-op thread (the smoke model's ops are
-    too small to share)."""
+    """The CLI on the host, with this process's share of the cores (which
+    ``torch_parity`` hands down to subprocesses)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env.update(PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    env.update(PYTHONPATH=str(ROOT / "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu"] + args
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             env=env, cwd=ROOT)
